@@ -1,6 +1,6 @@
-"""pointcloudmatters_tpu — TPU-native rebuild of PointCloudMatters / OBSBench.
+"""pointcloudmatters_tpu — JAX rebuild of PointCloudMatters / OBSBench.
 
-JAX / XLA / Pallas / pjit framework for behavior-cloning manipulation policies
+JAX / XLA / Pallas framework for behavior-cloning manipulation policies
 (ACT, Diffusion Policy) under RGB / RGB-D / point-cloud observation spaces.
 """
 

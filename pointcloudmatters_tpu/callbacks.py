@@ -4,8 +4,8 @@ Covers the reference's Lightning callback config group
 (`configs/callbacks/*.yaml`): ModelCheckpoint (top-k on a monitored metric +
 save_last, `configs/callbacks/default.yaml:10-16`), EarlyStopping,
 LearningRateMonitor, ModelSummary, RichProgressBar (console epoch lines),
-DeviceStatsMonitor (jax device memory stats). Checkpoint IO is Orbax,
-orchestrated by ``Trainer.save_checkpoint``.
+DeviceStatsMonitor (jax device memory stats). Checkpoint IO is
+``utils/checkpoint``, orchestrated by ``Trainer.save_checkpoint``.
 """
 
 from __future__ import annotations
@@ -30,6 +30,10 @@ class Callback:
         pass
 
     def on_fit_start(self, trainer, module) -> None:
+        pass
+
+    def on_train_batch_end(self, trainer, module, metrics: dict,
+                           batch_idx: int) -> None:
         pass
 
     def on_train_epoch_end(self, trainer, module, metrics: dict, epoch: int) -> None:
@@ -261,7 +265,7 @@ class StochasticWeightAveraging(Callback):
     - at fit end the averaged weights replace the model's and the
       BatchNorm running statistics are recomputed over the train loader as
       a UNIFORM average of per-batch statistics (torch
-      ``update_bn``'s ``momentum=None`` cumulative mode). flax hides the BN
+      ``update_bn``'s ``momentum=None`` cumulative mode). the module system hides the BN
       momentum inside each layer, so the refresh recovers exact per-batch
       stats by probing: one forward from zeroed stats gives
       ``(1-m)*batch``, one from ones gives ``m + (1-m)*batch`` — their
@@ -427,7 +431,7 @@ class StochasticWeightAveraging(Callback):
 
 class DeviceStatsMonitor(Callback):
     """Logs per-device memory stats (`configs/callbacks/device_stats_monitor.yaml`);
-    TPU analog of Lightning's DeviceStatsMonitor."""
+    analog of Lightning's DeviceStatsMonitor."""
 
     def on_train_epoch_end(self, trainer, module, metrics: dict, epoch: int) -> None:
         stats = {}

@@ -3,7 +3,7 @@
 Mirrors the reference LightningDataModule (`src/data/base_datamodule.py:15`)
 including the quirk of picking the point-cloud collate when the dataset's
 repr contains "pcd" (`base_datamodule.py:111`). The point-cloud collate here
-is the TPU-native padded/bucketed one.
+is the padded/bucketed one.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ class BaseDataModule:
         self.batch_size_val = batch_size_val
         self.batch_size_test = batch_size_test
         self.num_workers = num_workers
-        self.pin_memory = pin_memory  # accepted for config parity; no-op on TPU
+        self.pin_memory = pin_memory  # accepted for config parity; no-op here
         self.pad_multiple = pad_multiple
         self.seed = seed
 

@@ -2,7 +2,7 @@
 
 Two families:
 
-1. **Padded collate** (TPU-native, the default training path): point clouds
+1. **Padded collate** (the default training path): point clouds
    are padded to a bucketed fixed length and stacked to dense ``(P, N, ...)``
    tensors with a validity mask. XLA needs static shapes; bucket sizes are
    rounded up to ``pad_multiple`` so the jitted train step recompiles at most
@@ -40,10 +40,10 @@ def _part1by2_np(v: np.ndarray) -> np.ndarray:
 
 def morton_order(coord: np.ndarray) -> np.ndarray:
     """Morton (Z-curve) permutation of an (N, 3) cloud, quantized to a 10-bit
-    grid over its bounding box. Spatially-coherent point order is what lets
-    the chunk-skipping kNN kernel (`ops/pallas_knn2.py`) early-out: sorting
-    here, on the host in the collate worker, costs ~100 us per cloud where a
-    device-side argsort costs ~8 ms per batch. Point clouds are sets — any
+    grid over its bounding box. Spatially-coherent point order keeps
+    neighbouring points close in memory for the kNN gathers; sorting here,
+    on the host in the collate worker, keeps it off the device. Point clouds
+    are sets — any
     permutation of the valid points is semantically identical (FPS picks a
     different but equally valid sample; exact-kNN results are order-invariant
     up to distance ties)."""
@@ -125,7 +125,7 @@ def pad_point_clouds(pcds: list[dict], pad_multiple: int = 512,
 
 def padded_pcd_collate_fn(batch: Sequence[dict], pad_multiple: int = 512,
                           max_points: int | None = None) -> dict:
-    """TPU-native collate: default-stack everything, pad-and-stack ``pcds``.
+    """Padded collate: default-stack everything, pad-and-stack ``pcds``.
 
     Mirrors the reference's dispatch of `pcd_collate_fn`
     (`sparse_tensor_utils.py:65-82`) but produces fixed-shape masked arrays.

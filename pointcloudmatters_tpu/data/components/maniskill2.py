@@ -38,7 +38,7 @@ from pointcloudmatters_tpu.utils.pylogger import RankedLogger
 
 log = RankedLogger(__name__, rank_zero_only=True)
 
-_DEFAULT_CACHE = os.path.join(expanduser("~"), ".cache", "pcm_tpu")
+_DEFAULT_CACHE = os.path.join(expanduser("~"), ".cache", "pointcloudmatters")
 
 
 class Dataset:
@@ -64,11 +64,10 @@ class _ManiSkill2TrajectoryDataset(Dataset):
         cache_traj: bool = True,
         loop: int = 1,
     ):
-        import h5py
-
         self.dataset_file = dataset_file
-        self.data = h5py.File(dataset_file, "r")
-        self.json_data = io_utils.load_json(dataset_file.replace(".h5", ".json"))
+        self.data = io_utils.open_trajectories(dataset_file)
+        self.json_data = io_utils.load_json(
+            io_utils.trajectory_sidecar(dataset_file))
         self.episodes = self.json_data["episodes"]
         self.env_info = self.json_data["env_info"]
         self.env_id = self.env_info["env_id"]
@@ -111,10 +110,8 @@ class _ManiSkill2TrajectoryDataset(Dataset):
     def _trajectory(self, idx: int) -> dict:
         if self.cache_traj:
             return self.trajectories[idx]
-        import h5py
-
         if self.data is None:
-            self.data = h5py.File(self.dataset_file, "r")
+            self.data = io_utils.open_trajectories(self.dataset_file)
         return self._load_traj(self._episode_for_index(idx))
 
     def __len__(self):
@@ -344,7 +341,7 @@ class ManiSkill2GoalPosSingleTaskACTRGBDDataset(_ManiSkill2TrajectoryDataset):
         return rgb[ts]
 
     def _scale_image(self, image_khwc: np.ndarray) -> np.ndarray:
-        """(k,h,w,c) scaled, kept channel-last (NHWC is the TPU conv layout;
+        """(k,h,w,c) scaled, kept channel-last (NHWC is the conv layout here;
         the reference permutes to torch's NCHW here)."""
         img = image_khwc.astype(np.float32).copy()
         if self.only_depth:

@@ -9,7 +9,7 @@ generates the same env-ID surface *programmatically* at import time —
 factory functions build the subclass per variant and register it.
 
 Everything here is simulator-side (SAPIEN on the CPU host). Importing
-without ``mani_skill2`` installed is a silent no-op so the TPU training
+without ``mani_skill2`` installed is a silent no-op so the training
 stack never depends on the simulator.
 """
 

@@ -8,7 +8,7 @@ that re-runs the dataset's point-cloud pipeline in test mode, TemporalAgg
 chunk ensembling, and z-score action unnormalization.
 
 The simulator stays a CPU host process (SAPIEN); the policy side is a jitted
-apply fed fixed-shape padded batches so the TPU never recompiles between
+apply fed fixed-shape padded batches so the device never recompiles between
 steps. The env is anything with the gymnasium 5-tuple step contract —
 SURVEY §4's fake-env seam makes this loop testable without SAPIEN.
 """
@@ -117,7 +117,7 @@ def _drive_episodes(
     simulators are host-bound, so W worker threads each own an env and run
     whole episodes concurrently; the shared jitted policy apply is serialized
     by a device lock inside ``predict`` callers (JAX dispatch is
-    thread-safe), so the TPU serves one env while the others are stepping
+    thread-safe), so the device serves one env while the others are stepping
     SAPIEN on the host. Episode seeds/protocol are index-derived, so results
     are identical to the serial order.
     """

@@ -1,7 +1,7 @@
-"""ACT policy family — CVAE action-chunking transformers, TPU-native.
+"""ACT policy family — CVAE action-chunking transformers.
 
 Re-implements the four policies of reference `act/act.py:40,312,601,707`
-(`ACT`, `ACTPCD`, `ACTRLBench`, `ACTRLBenchPCD`) as flax.linen modules over
+(`ACT`, `ACTPCD`, `ACTRLBench`, `ACTRLBenchPCD`) as ``nn`` modules over
 padded batches:
 
 - batch-first token sequences; point clouds are ``(B, N, ...)`` + ``valid``
@@ -12,8 +12,8 @@ padded batches:
   provided (the reference samples there too — a noise source we drop) and
   zeros otherwise (`act/act.py:177-182`)
 - quirk preserved: the decoder output consumed is intermediate index 0 — the
-  *first* decoder layer (`act/act.py:262-270`); XLA dead-code-eliminates the
-  remaining layers
+  *first* decoder layer (`act/act.py:262-270`); the remaining layers are not
+  computed
 
 Call protocol: ``module(data_dict, train=...)`` returns a new dict with
 outputs merged (``a_hat``, ``is_pad_hat``, and when actions are present
@@ -27,7 +27,7 @@ from typing import Any, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from pointcloudmatters_tpu import nn
 
 from pointcloudmatters_tpu.models.components.act.positional_encoding import (
     coord_embedding_sine,
@@ -302,8 +302,7 @@ class ACTPCD(ACT):
             return jnp.concatenate([fg_idx, bg_idx], axis=1)
         return fg_idx
 
-    def pcd_sampling(self, coord, feat, valid, fg_mask=None, train=False,
-                     feat_is_data=False):
+    def pcd_sampling(self, coord, feat, valid, fg_mask=None, train=False):
         """Returns (new_xyz (B,m,3), tokens (B,m,proj_dim), idx (B,m)).
 
         The reference projects the gathered ``(m, k, 3 + C)`` neighborhoods
@@ -316,12 +315,8 @@ class ACTPCD(ACT):
         Projecting the N source points once instead of every (m, k) gather
         copy cuts the dominant matmul M*K/N-fold (3.2x at the flagship
         shapes). The gather→BN→ReLU→max tail then runs through the fused
-        ``GroupedBNReluMax`` (bit-exact — see its docstring), so the
-        (B, m, k, D) neighborhood tensor never reaches HBM. On TPU under
-        mixed precision the tail routes through the Pallas fused-builder
-        kernels (``ops/fused_builder.py``); ``feat_is_data=True`` (raw
-        ``pre_sample`` clouds, frozen backbones) additionally selects the
-        scatter-free backward.
+        ``GroupedBNReluMax`` (bit-exact — see its docstring), which never
+        applies BN/ReLU over the (B, m, k, D) neighborhood tensor.
         """
         idx = self._fps_indices(coord, valid, fg_mask)
         new_xyz = jnp.take_along_axis(coord, idx[..., None], axis=1)
@@ -330,23 +325,8 @@ class ACTPCD(ACT):
         src_cat = jnp.concatenate([coord, feat], axis=-1)
         query_cat = jnp.concatenate([new_xyz, zeros_f], axis=-1)
         h = self.pcd_linear(query_cat)
-        # The Pallas fused builder only wins when the source rows are data
-        # (its backward is scatter-free); with learned per-point features
-        # the dense-dg scatter is the floor and XLA autodiff already sits
-        # on it (measured: PERF.md round 5), so that path stays unfused.
-        impl = GroupedBNReluMax.resolve_impl(
-            coord.shape[1], nn_idx.shape[1], nn_idx.shape[2], h.shape[-1],
-            h.dtype,
-        ) if feat_is_data else "xla"
-        if impl == "fused":
-            W = self.pcd_linear.variables["params"]["kernel"].astype(h.dtype)
-            x = self.pcd_bn(
-                None, h, nn_idx, use_running_average=not train,
-                src=jax.lax.stop_gradient(src_cat), W=W, impl="fused_data",
-            )
-        else:
-            g = self.pcd_linear(src_cat)  # (B, N, D)
-            x = self.pcd_bn(g, h, nn_idx, use_running_average=not train)
+        g = self.pcd_linear(src_cat)  # (B, N, D)
+        x = self.pcd_bn(g, h, nn_idx, use_running_average=not train)
         return new_xyz, x, idx
 
     def forward_pcd_embed(self, pcd_dict: dict, train: bool):
@@ -357,7 +337,6 @@ class ACTPCD(ACT):
         if self.pre_sample:
             new_xyz, feat, idx = self.pcd_sampling(
                 coord, pcd_dict["feat"], valid, fg_mask, train=train,
-                feat_is_data=True,  # raw dataset cloud, no grad needed
             )
             sampled = dict(
                 pcd_dict,
@@ -377,7 +356,6 @@ class ACTPCD(ACT):
                 features = jax.lax.stop_gradient(features)
             coords_out, features, _ = self.pcd_sampling(
                 coord, features, valid, fg_mask, train=train,
-                feat_is_data=self.freeze_backbone,
             )
 
         pcd_pos = coord_embedding_sine(coords_out, self.hidden_dim)

@@ -1,7 +1,7 @@
 """Positional embeddings for ACT observation tokens.
 
-TPU-native counterparts of reference `act/positional_encoding.py:14-92` and
-the 3D point embedding `act/act.py:467-506`. Feature maps are NHWC (the TPU
+Counterparts of reference `act/positional_encoding.py:14-92` and
+the 3D point embedding `act/act.py:467-506`. Feature maps are NHWC (the
 conv layout); embeddings are returned token-last ``(..., D)`` so they add
 directly onto batch-first token sequences.
 """
@@ -13,7 +13,7 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from pointcloudmatters_tpu import nn
 
 
 def _sine_embed_1d(values: jax.Array, num_feats: int, temperature: float) -> jax.Array:

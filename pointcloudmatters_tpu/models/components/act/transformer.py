@@ -1,4 +1,4 @@
-"""DETR-style transformer for ACT, batch-first and TPU-native.
+"""DETR-style transformer for ACT, batch-first.
 
 Behavioral contract follows reference `act/transformer.py:16-425` (pre/post
 norm encoder + decoder, positional embeddings added to attention inputs only,
@@ -8,16 +8,17 @@ value stream un-positioned), redesigned for XLA:
   the reference only because torch ``nn.MultiheadAttention`` wants them)
 - padding is a boolean ``key_padding_mask`` (True = PAD, torch convention)
   folded into the attention bias; static shapes throughout
-- one fused attention per layer via ``nn.MultiHeadDotProductAttention``
-  (q = x + pos, k = x + pos, v = x), which XLA maps onto the MXU
+- one attention per layer via ``nn.MultiHeadDotProductAttention``
+  (q = x + pos, k = x + pos, v = x), plain XLA math as the reference's torch
+  ``nn.MultiheadAttention``
 - the top-level ``Transformer`` takes token sequences ``(B, L, D)`` directly;
   the reference's ``(B, C, H, W)``/``(B, C, 1, N)`` flattening lives with the
   callers in `act.py`.
 
 Quirk preserved: with ``return_intermediate_dec`` the caller (ACT) consumes
 index 0 — the *first* decoder layer's normed output (`act/act.py:262-270`).
-Later layers are dead code under jit and XLA eliminates them, so the TPU build
-does not pay for the reference's wasted 6/7 of decoder compute.
+Later layers are not computed (``TransformerDecoder.live_layers``), so this
+build does not pay for the reference's wasted 6/7 of decoder compute.
 """
 
 from __future__ import annotations
@@ -28,27 +29,12 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
+from pointcloudmatters_tpu import nn
 
 from pointcloudmatters_tpu.models.components.nn_utils import (
     BitsDropout,
     activation_fn,
 )
-from pointcloudmatters_tpu.ops.attention import (
-    make_flash_attention_fn,
-    make_oneshot_attention_fn,
-)
-
-
-_ATTENTION_IMPLS = ("dense", "flash", "oneshot", "fused")
-
-
-def _check_attention_impl(impl: str) -> None:
-    """A typo like 'flashh' must not silently select the dense backend."""
-    if impl not in _ATTENTION_IMPLS:
-        raise ValueError(
-            f"attention_impl must be one of {_ATTENTION_IMPLS}, got {impl!r}"
-        )
 
 
 def _attention_mask(key_padding_mask: Optional[jax.Array]) -> Optional[jax.Array]:
@@ -63,15 +49,14 @@ class EfficientMHA(nn.Module):
     ``nn.MultiHeadDotProductAttention`` (query/key/value/out DenseGeneral
     trees) but with a bandwidth-frugal attention-weight dropout.
 
-    flax's dropout draws (B, H, L, L) *float32* uniforms — for 2k point
-    tokens that is 4.3 GB of generated randomness per layer, the single
-    largest HBM consumer in the ACT train step (profiled at 80 ms/layer on
-    v5e). Here the keep-mask comes from uint8 random bits (4x less traffic);
-    the drop rate is quantized to the nearest 1/256 (0.1 -> 0.1016), which
-    is noise at these rates. The attention core is jax.checkpoint'ed, so only
-    q/k/v are saved for backward — the memory-frugal choice for very long
-    token sequences (measured ~6% slower than flax MHA at 2k tokens on v5e,
-    so it is NOT the default; select it when HBM, not time, binds).
+    ``nn.Dropout``'s per-element dropout draws (B, H, L, L) *float32* uniforms — for
+    2k point tokens that is 4.3 GB of generated randomness per layer. Here
+    the keep-mask comes from uint8 random bits (4x less traffic); the drop
+    rate is quantized to the nearest 1/256 (0.1 -> 0.1016), which is noise
+    at these rates. The attention core is jax.checkpoint'ed, so only q/k/v
+    are saved for backward — the memory-frugal choice for very long token
+    sequences. It is not the default; select it when memory, not time,
+    binds.
     """
 
     num_heads: int
@@ -96,7 +81,7 @@ class EfficientMHA(nn.Module):
 
         # checkpointed core: only q/k/v (+rng key) are saved for the backward
         # pass; the (B, H, L, L) logits/probs/keep-mask are recomputed. At 2k
-        # point tokens those are 4.3 GB *per layer* — saving them OOMs v5e.
+        # point tokens those are 4.3 GB *per layer*.
         @jax.checkpoint
         def core(q, k, v, key):
             logits = jnp.einsum("bqhd,bkhd->bhqk", q, k) / jnp.asarray(
@@ -122,142 +107,6 @@ class EfficientMHA(nn.Module):
         )(out)
 
 
-class _ProjParams(nn.Module):
-    """Declares a DenseGeneral-shaped (kernel, bias) pair without applying
-    it — lets ``FusedSelfAttention`` own parameters whose tree is identical
-    to ``nn.MultiHeadDotProductAttention``'s query/key/value/out children.
-
-    Init mirrors flax DenseGeneral's ``kernel_init_wrap``: the initializer is
-    called on the FLATTENED 2-D shape (prod(in_axes), prod(out_axes)) and the
-    result reshaped to ``kernel_shape`` — so fan_in for a (D, H, dh) q/k/v
-    kernel is D (not H), and for the (H, dh, D) out kernel it is H*dh. Without
-    this, lecun_normal sees the 3-D shape and picks fan_in from axis -2,
-    giving ~8x too-large stddev and an init inconsistent with the other
-    interchangeable backends.
-    """
-
-    kernel_shape: tuple
-    bias_shape: tuple
-    n_in_axes: int = 1  # leading dims of kernel_shape that are input axes
-
-    @nn.compact
-    def __call__(self):
-        def flat_init(key, shape, dtype=jnp.float32):
-            n_in = int(np.prod(shape[: self.n_in_axes]))
-            n_out = int(np.prod(shape[self.n_in_axes :]))
-            flat = nn.linear.default_kernel_init(key, (n_in, n_out), dtype)
-            return flat.reshape(shape)
-
-        kernel = self.param("kernel", flat_init, self.kernel_shape)
-        bias = self.param("bias", nn.initializers.zeros, self.bias_shape)
-        return kernel, bias
-
-
-class FusedSelfAttention(nn.Module):
-    """Self-attention backend that picks the fastest measured kernel per
-    execution mode (flagship shapes, v5e, per encoder layer):
-
-    - **deterministic forward** (rollout validation, inference): the whole
-      layer attention — QKV projections + 8-head whole-row attention + out
-      projection — runs as ONE Pallas kernel (`ops/fused_mha.py`), 9.1 ms
-      vs 10.8 for the composed oneshot path (the probe without the layer
-      around it: 8.1 vs 11.5);
-    - **training**: the composed path (einsum projections + the oneshot
-      core) — the fused kernel's composed backward measured *slower*
-      (40.0 vs 36.1 ms fwd+bwd), so training keeps the oneshot structure;
-    - off-TPU / masked / short sequences: dense flax math.
-
-    Parameter tree is identical to ``nn.MultiHeadDotProductAttention``
-    (query/key/value kernels (D, H, dh), out kernel (H, dh, D)), so
-    checkpoints are interchangeable with every other backend. Dropout uses
-    the oneshot kernel's broadcast semantics (mask shared over batch,
-    distinct per head).
-    """
-
-    num_heads: int
-    d_model: int
-    dropout_rate: float = 0.0
-
-    @nn.compact
-    def __call__(self, inputs_q, inputs_k, inputs_v, mask=None,
-                 deterministic: bool = True) -> jax.Array:
-        import os
-
-        from pointcloudmatters_tpu.ops.fused_mha import fused_mha
-        from pointcloudmatters_tpu.ops.oneshot_attention import (
-            oneshot_attention,
-        )
-
-        H = self.num_heads
-        D = self.d_model
-        DH = D // H
-        dt = inputs_q.dtype
-        wq, bq = _ProjParams((D, H, DH), (H, DH), name="query")()
-        wk, bk = _ProjParams((D, H, DH), (H, DH), name="key")()
-        wv, bv = _ProjParams((D, H, DH), (H, DH), name="value")()
-        wo, bo = _ProjParams((H, DH, D), (D,), n_in_axes=2, name="out")()
-        use_dropout = self.dropout_rate > 0.0 and not deterministic
-
-        on_tpu = (
-            jax.default_backend() == "tpu"
-            and os.environ.get("PCM_DISABLE_PALLAS", "0") not in ("1", "true")
-        )
-        if on_tpu and mask is None and inputs_q.shape[1] >= 512:
-            # the fused kernel computes k from inputs_q (self-attention: the
-            # ACT encoder always passes q is k = x + pos); if a caller ever
-            # hands a DIFFERENT k source, use the composed path which honors it
-            if not use_dropout and inputs_k is inputs_q:
-                # inference: one kernel for the whole layer attention
-                return fused_mha(
-                    inputs_q, inputs_v,
-                    wq.reshape(D, D).astype(dt), bq.reshape(D).astype(dt),
-                    wk.reshape(D, D).astype(dt), bk.reshape(D).astype(dt),
-                    wv.reshape(D, D).astype(dt), bv.reshape(D).astype(dt),
-                    wo.reshape(D, D).astype(dt), bo.astype(dt),
-                    jnp.zeros((1,), jnp.int32), H, 0.0,
-                ).astype(dt)
-            # training (or deterministic with a distinct k source): composed
-            # projections + the oneshot core (its custom VJP is the
-            # measured-fastest backward at these shapes)
-            if use_dropout:
-                seed = jax.lax.bitcast_convert_type(
-                    jax.random.bits(self.make_rng("dropout"), (1,), "uint32"),
-                    jnp.int32,
-                )
-                rate = self.dropout_rate
-            else:
-                seed = jnp.zeros((1,), jnp.int32)
-                rate = 0.0
-            q = (jnp.einsum("bld,dhk->blhk", inputs_q, wq.astype(dt))
-                 + bq.astype(dt)).transpose(0, 2, 1, 3)
-            k = (jnp.einsum("bld,dhk->blhk", inputs_k, wk.astype(dt))
-                 + bk.astype(dt)).transpose(0, 2, 1, 3)
-            v = (jnp.einsum("bld,dhk->blhk", inputs_v, wv.astype(dt))
-                 + bv.astype(dt)).transpose(0, 2, 1, 3)
-            o = oneshot_attention(
-                q, k, v, seed, DH ** -0.5, rate
-            ).transpose(0, 2, 1, 3)
-            return (jnp.einsum("blhk,hkd->bld", o, wo.astype(dt))
-                    + bo.astype(dt))
-
-        # dense fallback (CPU tests, masked/short sequences): exactly the
-        # flax MultiHeadDotProductAttention math over the same parameters
-        q = jnp.einsum("...d,dhk->...hk", inputs_q, wq.astype(dt)) + bq.astype(dt)
-        k = jnp.einsum("...d,dhk->...hk", inputs_k, wk.astype(dt)) + bk.astype(dt)
-        v = jnp.einsum("...d,dhk->...hk", inputs_v, wv.astype(dt)) + bv.astype(dt)
-        out = nn.dot_product_attention(
-            q, k, v, mask=mask,
-            dropout_rng=self.make_rng("dropout") if use_dropout else None,
-            dropout_rate=self.dropout_rate if use_dropout else 0.0,
-            broadcast_dropout=True,
-            deterministic=not use_dropout,
-        )
-        return (
-            jnp.einsum("...hk,hkd->...d", out, wo.astype(dt))
-            + bo.astype(dt)
-        )
-
-
 class TransformerEncoderLayer(nn.Module):
     d_model: int
     nhead: int
@@ -265,16 +114,6 @@ class TransformerEncoderLayer(nn.Module):
     dropout: float = 0.1
     activation: str = "relu"
     normalize_before: bool = False
-    # attention backend for the self-attention core:
-    # - "oneshot" (default): whole-row Pallas kernel with in-kernel broadcast
-    #   dropout (ops/oneshot_attention.py) — exact softmax, no (B, H, L, L)
-    #   HBM tensor, measured 2.9x over dense at the flagship L=2051 on v5e.
-    # - "flash": streaming online-softmax kernel (ops/flash_attention.py),
-    #   for sequences too long for a whole key row in VMEM (≳ 8k tokens).
-    # - "dense": XLA dot-product attention.
-    # All impls auto-fall back to dense off-TPU, for short sequences, and for
-    # masked/biased cases the kernels don't model (ops/attention.py).
-    attention_impl: str = "oneshot"
 
     @nn.compact
     def __call__(
@@ -284,34 +123,21 @@ class TransformerEncoderLayer(nn.Module):
         key_padding_mask: Optional[jax.Array] = None,
         deterministic: bool = True,
     ) -> jax.Array:
-        _check_attention_impl(self.attention_impl)
-        if self.attention_impl == "fused":
-            attn = FusedSelfAttention(
-                num_heads=self.nhead, d_model=self.d_model,
-                dropout_rate=self.dropout, name="self_attn",
-            )
-        else:
-            attn_kwargs = {}
-            if self.attention_impl == "flash":
-                attn_kwargs["attention_fn"] = make_flash_attention_fn()
-            elif self.attention_impl == "oneshot":
-                attn_kwargs["attention_fn"] = make_oneshot_attention_fn()
-            attn = nn.MultiHeadDotProductAttention(
-                num_heads=self.nhead,
-                qkv_features=self.d_model,
-                out_features=self.d_model,
-                dropout_rate=self.dropout,
-                broadcast_dropout=True,
-                name="self_attn",
-                **attn_kwargs,
-            )
+        attn = nn.MultiHeadDotProductAttention(
+            num_heads=self.nhead,
+            qkv_features=self.d_model,
+            out_features=self.d_model,
+            dropout_rate=self.dropout,
+            broadcast_dropout=True,
+            name="self_attn",
+        )
         ffn_in = nn.Dense(self.dim_feedforward, name="linear1")
         ffn_out = nn.Dense(self.d_model, name="linear2")
         norm1 = nn.LayerNorm(epsilon=1e-5, name="norm1")
         norm2 = nn.LayerNorm(epsilon=1e-5, name="norm2")
         act = activation_fn(self.activation)
-        # BitsDropout: the residual streams here are (B, L~2051, D) — flax
-        # Dropout's per-element 32-bit threefry costs ~1.6 ms per site on v5e
+        # BitsDropout: the residual streams here are (B, L~2051, D); uint8
+        # bits are a quarter of nn.Dropout's 32-bit draws
         drop = lambda x: BitsDropout(self.dropout, deterministic=deterministic)(x)
         mask = _attention_mask(key_padding_mask)
 
@@ -343,14 +169,6 @@ class TransformerDecoderLayer(nn.Module):
     dropout: float = 0.1
     activation: str = "relu"
     normalize_before: bool = False
-    # cross-attention backend. At the flagship decoder shape (nq=100 queries
-    # against the 2051-token memory) XLA's dense path WINS: 5.4 ms fwd+bwd
-    # vs 7.0 for the rectangular oneshot kernel (the (B, H, nq, L) f32
-    # tensors are only ~2 GB and XLA fuses well at this size), so "dense" is
-    # the default; "oneshot" is the right choice only if nq grows toward the
-    # memory length. Self-attention (nq x nq) always routes dense via the
-    # adapter's min-seq-len check.
-    attention_impl: str = "dense"
 
     @nn.compact
     def __call__(
@@ -362,18 +180,6 @@ class TransformerDecoderLayer(nn.Module):
         memory_key_padding_mask: Optional[jax.Array] = None,
         deterministic: bool = True,
     ) -> jax.Array:
-        _check_attention_impl(self.attention_impl)
-        if self.attention_impl == "fused":
-            raise ValueError(
-                "attention_impl='fused' is encoder-self-attention only (the "
-                "kernel assumes query==key rows); use dense/oneshot/flash "
-                "for the decoder"
-            )
-        cross_kwargs = {}
-        if self.attention_impl == "flash":
-            cross_kwargs["attention_fn"] = make_flash_attention_fn()
-        elif self.attention_impl == "oneshot":
-            cross_kwargs["attention_fn"] = make_oneshot_attention_fn()
         self_attn = nn.MultiHeadDotProductAttention(
             num_heads=self.nhead,
             qkv_features=self.d_model,
@@ -389,7 +195,6 @@ class TransformerDecoderLayer(nn.Module):
             dropout_rate=self.dropout,
             broadcast_dropout=True,
             name="multihead_attn",
-            **cross_kwargs,
         )
         ffn_in = nn.Dense(self.dim_feedforward, name="linear1")
         ffn_out = nn.Dense(self.d_model, name="linear2")
@@ -445,12 +250,6 @@ class TransformerEncoder(nn.Module):
     activation: str = "relu"
     normalize_before: bool = False
     num_layers: int = 4
-    # optionally rematerialize layers in the backward pass (trades ~30%
-    # encoder FLOPs for not saving per-layer attention residuals). Off by
-    # default: with the uint8-dropout attention the recompute transients can
-    # exceed v5e HBM at the flagship batch, and measured wins were nil.
-    remat: bool = False
-    attention_impl: str = "oneshot"
 
     @nn.compact
     def __call__(
@@ -460,17 +259,10 @@ class TransformerEncoder(nn.Module):
         key_padding_mask: Optional[jax.Array] = None,
         deterministic: bool = True,
     ) -> jax.Array:
-        layer_cls = TransformerEncoderLayer
-        if self.remat:
-            layer_cls = nn.remat(
-                TransformerEncoderLayer, static_argnums=(4,),
-                prevent_cse=False,
-            )
         for i in range(self.num_layers):
-            src = layer_cls(
+            src = TransformerEncoderLayer(
                 self.d_model, self.nhead, self.dim_feedforward, self.dropout,
-                self.activation, self.normalize_before,
-                attention_impl=self.attention_impl, name=f"layers_{i}",
+                self.activation, self.normalize_before, name=f"layers_{i}",
             )(src, pos, key_padding_mask, deterministic)
         if self.normalize_before:
             src = nn.LayerNorm(epsilon=1e-5, name="norm")(src)
@@ -486,12 +278,10 @@ class TransformerDecoder(nn.Module):
     normalize_before: bool = False
     num_layers: int = 6
     return_intermediate: bool = False
-    attention_impl: str = "dense"
     # How many leading layers to actually COMPUTE at apply time. The ACT
     # caller consumes only ``hs[0]`` (`act/act.py:262-270` takes the first
     # intermediate), but XLA does NOT dead-code-eliminate the remaining
-    # layers through jax.grad's saved residuals — measured 5.4 ms per dead
-    # layer at the flagship shape on v5e (6 dead layers = 33 ms/step).
+    # layers through jax.grad's saved residuals.
     # During ``init`` every layer still runs so the parameter tree stays
     # identical to the reference (ported checkpoints load unchanged).
     # ``None`` = compute all layers.
@@ -520,8 +310,7 @@ class TransformerDecoder(nn.Module):
         for i in range(n_run):
             out = TransformerDecoderLayer(
                 self.d_model, self.nhead, self.dim_feedforward, self.dropout,
-                self.activation, self.normalize_before,
-                attention_impl=self.attention_impl, name=f"layers_{i}",
+                self.activation, self.normalize_before, name=f"layers_{i}",
             )(out, memory, pos=pos, query_pos=query_pos,
               memory_key_padding_mask=memory_key_padding_mask,
               deterministic=deterministic)
@@ -559,11 +348,6 @@ class Transformer(nn.Module):
     activation: str = "relu"
     normalize_before: bool = False
     return_intermediate_dec: bool = False
-    # attention backend for the encoder self-attention (the full point-token
-    # row). The decoder keeps its own default ("dense" — faster at nq=100,
-    # see TransformerDecoderLayer.attention_impl); the CVAE posterior routes
-    # dense via the adapter's min-seq-len check.
-    attention_impl: str = "oneshot"
     # With return_intermediate_dec the ACT caller consumes only hs[0]; by
     # default compute just that first decoder layer (params for the rest
     # still exist — see TransformerDecoder.live_layers). Set to None to
@@ -603,7 +387,7 @@ class Transformer(nn.Module):
         memory = TransformerEncoder(
             self.d_model, self.nhead, self.dim_feedforward, self.dropout,
             self.activation, self.normalize_before, self.num_encoder_layers,
-            attention_impl=self.attention_impl, name="encoder",
+            name="encoder",
         )(src, pos=pos, key_padding_mask=key_padding_mask,
           deterministic=deterministic)
 

@@ -1,9 +1,9 @@
 """ConditionalUnet1D — FiLM-conditioned temporal UNet, channel-last.
 
-Reference `diffusion/conditional_unet1d.py:17-297`. TPU-native layout: the
+Reference `diffusion/conditional_unet1d.py:17-297`. Layout: the
 action trajectory stays ``(B, T, C)`` end-to-end (the reference permutes to
-torch's ``(B, C, T)`` and back); convs are ``flax.linen.Conv`` over the time
-axis, which XLA lowers to MXU matmuls.
+torch's ``(B, C, T)`` and back); convs are ``nn.Conv`` over the time
+axis, which XLA lowers to matmuls.
 
 Quirk preserved: with 3 down levels there are only 2 up levels, so the first
 skip (full-resolution features) is never consumed — matches the published
@@ -17,7 +17,7 @@ from typing import Optional, Sequence
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
+from pointcloudmatters_tpu import nn
 
 
 def mish(x):
@@ -53,7 +53,7 @@ class Conv1dBlock(nn.Module):
             self.features, (self.kernel_size,),
             padding=[(self.kernel_size // 2,) * 2], name="conv",
         )(x)
-        # torch GroupNorm eps (flax defaults to 1e-6; parity-tested)
+        # torch GroupNorm eps (nn.GroupNorm defaults to 1e-6; parity-tested)
         x = nn.GroupNorm(num_groups=self.n_groups, epsilon=1e-5, name="norm")(x)
         return mish(x)
 
@@ -72,7 +72,7 @@ class Upsample1d(nn.Module):
 
     @nn.compact
     def __call__(self, x):
-        # torch ConvTranspose1d(k=4, s=2, p=1) is an exact 2x upsample; flax's
+        # torch ConvTranspose1d(k=4, s=2, p=1) is an exact 2x upsample; nn's
         # "SAME" transposed padding yields the same output length
         return nn.ConvTranspose(self.features, (4,), strides=(2,),
                                 padding="SAME", name="conv")(x)
@@ -198,9 +198,9 @@ def port_torch_state(ref_module) -> dict:
     (`diffusion/conditional_unet1d.py:78-297`) onto this module's param tree.
 
     Used by the reference-parity tests and by checkpoint-porting tooling.
-    Torch ``Conv1d`` weights ``(out, in, k)`` become flax ``(k, in, out)``;
+    Torch ``Conv1d`` weights ``(out, in, k)`` become ``(k, in, out)``;
     ``ConvTranspose1d`` weights ``(in, out, k)`` are spatially flipped for
-    flax's ``transpose_kernel=False`` convention.
+    the ``transpose_kernel=False`` convention.
     """
     from pointcloudmatters_tpu.utils import torch_layouts as TL
 

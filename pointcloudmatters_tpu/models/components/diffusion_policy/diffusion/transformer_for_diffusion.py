@@ -5,7 +5,7 @@ but never selected by any config — library-surface parity). Architecture:
 sinusoidal time embedding (+ optional obs conditioning tokens) feed a small
 encoder whose memory cross-conditions a (optionally causal) decoder over the
 noisy action trajectory; BERT-style encoder-only mode when ``time_as_cond``
-is off. Batch-first flax throughout.
+is off. Batch-first throughout.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
+from pointcloudmatters_tpu import nn
 
 from pointcloudmatters_tpu.models.components.diffusion_policy.diffusion.conditional_unet1d import (
     SinusoidalPosEmb,

@@ -26,7 +26,7 @@ from typing import Any, Optional, Sequence
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
+from pointcloudmatters_tpu import nn
 
 from pointcloudmatters_tpu.models.components.diffusion_policy.diffusion.conditional_unet1d import (
     ConditionalUnet1D,

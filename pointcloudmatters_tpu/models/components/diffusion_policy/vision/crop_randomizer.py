@@ -9,7 +9,7 @@ normalized source location.
 
 The shipped configs only exercise ``num_crops=1`` (which
 ``MultiImageObsEncoder`` handles inline); this module completes the n-crop
-library surface for parity. Layout is NHWC (TPU conv layout); the reference
+library surface for parity. Layout is NHWC (XLA conv layout); the reference
 is NCHW.
 """
 
@@ -19,7 +19,7 @@ from typing import Optional, Sequence
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from pointcloudmatters_tpu import nn
 
 
 def crop_image_from_indices(

@@ -6,7 +6,7 @@ crop (random at train, center at eval) -> optional ImageNet norm -> shared or
 per-key rgb model; depth channels merged onto their rgb key; low-dim keys
 concatenated raw. ``use_group_norm`` is a construction-time property of the
 rgb model here (pass a GroupNorm-built encoder) rather than a post-hoc module
-surgery — flax modules are immutable.
+surgery — modules are immutable.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from typing import Any, Optional, Tuple, Union
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from pointcloudmatters_tpu import nn
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)

@@ -14,7 +14,7 @@ from typing import Any, Optional, Sequence
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from pointcloudmatters_tpu import nn
 
 from pointcloudmatters_tpu.models.components.nn_utils import (
     GroupedBNReluMax,
@@ -85,14 +85,11 @@ class PCDObsEncoder(nn.Module):
             return jnp.concatenate([fg_idx, bg_idx], axis=1)
         return fg_idx
 
-    def pcd_sampling(self, coord, feat, valid, fg_mask=None, train=False,
-                     feat_is_data=False):
+    def pcd_sampling(self, coord, feat, valid, fg_mask=None, train=False):
         # fused token builder — the bias-free linear over the grouped
         # [xyz[nn] - new_xyz, feat[nn]] rows splits as
         # Dense([xyz, feat])[nn] - Dense([new_xyz, 0]); the gather→BN→ReLU→max
-        # tail runs through GroupedBNReluMax (bit-exact, see its docstring),
-        # routed to the Pallas fused-builder kernels on TPU (same selection
-        # logic as ACTPCD.pcd_sampling)
+        # tail runs through GroupedBNReluMax (bit-exact, see its docstring)
         idx = self._fps_indices(coord, valid, fg_mask)
         new_xyz = jnp.take_along_axis(coord, idx[..., None], axis=1)
         nn_idx, _ = knn_query_padded(new_xyz, coord, valid, self.pcd_nsample)
@@ -100,20 +97,8 @@ class PCDObsEncoder(nn.Module):
         src_cat = jnp.concatenate([coord, feat], axis=-1)
         query_cat = jnp.concatenate([new_xyz, zeros_f], axis=-1)
         h = self.linear(query_cat)
-        # fused only for data sources — see ACTPCD.pcd_sampling
-        impl = GroupedBNReluMax.resolve_impl(
-            coord.shape[1], nn_idx.shape[1], nn_idx.shape[2], h.shape[-1],
-            h.dtype,
-        ) if feat_is_data else "xla"
-        if impl == "fused":
-            W = self.linear.variables["params"]["kernel"].astype(h.dtype)
-            x = self.bn(
-                None, h, nn_idx, use_running_average=not train,
-                src=jax.lax.stop_gradient(src_cat), W=W, impl="fused_data",
-            )
-        else:
-            g = self.linear(src_cat)  # (B, N, D)
-            x = self.bn(g, h, nn_idx, use_running_average=not train)
+        g = self.linear(src_cat)  # (B, N, D)
+        x = self.bn(g, h, nn_idx, use_running_average=not train)
         return new_xyz, x, idx  # (B, npoints, proj_in)
 
     def encode_pcd(self, pcd_dict: dict, train: bool) -> jax.Array:
@@ -123,7 +108,6 @@ class PCDObsEncoder(nn.Module):
         if self.pre_sample:
             new_xyz, feat, idx = self.pcd_sampling(
                 coord, pcd_dict["feat"], valid, fg_mask, train=train,
-                feat_is_data=True,  # raw dataset cloud, no grad needed
             )
             sampled = dict(pcd_dict, coord=new_xyz, feat=feat,
                            valid=jnp.ones(idx.shape, bool))

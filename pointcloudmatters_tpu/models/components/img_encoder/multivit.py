@@ -1,11 +1,11 @@
-"""MultiViT / MultiMAE multi-modal image encoder, NHWC Flax.
+"""MultiViT / MultiMAE multi-modal image encoder, NHWC.
 
 The reference vendors the full EPFL MultiMAE implementation (~2,600 LoC,
 `src/models/components/img_encoder/multivit.py`); the training call-sites use
 only the *encoder* path: per-modality patch adapters (RGB + depth) -> shared
 transformer -> the last global token as the image feature
 (`multivit.py:2336-2420,2537-2597`). This module implements exactly that
-surface, TPU-native:
+surface, batch-first JAX:
 
 - ``PatchedInputAdapter``-equivalent: per-modality patch conv + fixed 2D
   sincos position embedding
@@ -26,7 +26,7 @@ from typing import Any, Dict, Optional, Sequence
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
+from pointcloudmatters_tpu import nn
 
 from pointcloudmatters_tpu.models.components.img_encoder.vit import (
     _Block,

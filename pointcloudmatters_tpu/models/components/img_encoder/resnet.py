@@ -1,10 +1,10 @@
-"""ResNet image encoders, NHWC Flax.
+"""ResNet image encoders, NHWC.
 
 Re-implements the torchvision-backed encoders of reference
-`src/models/components/img_encoder/resnet.py:47-199` TPU-natively:
+`src/models/components/img_encoder/resnet.py:47-199` in JAX:
 
 - torchvision ResNet-18/34/50 topology (v1.5 "stride-on-3x3" bottleneck)
-  in NHWC, the TPU conv layout
+  in NHWC, XLA's conv layout
 - first-conv channel inflation for depth(1)/RGBD(4)/pointmap(6) inputs: RGB
   kernels copied, extra channels zero-initialized (`resnet.py:62-86`)
 - forward preprocessing: resize to 224 + per-channel ImageNet normalization
@@ -23,7 +23,7 @@ from typing import Any, Optional, Sequence
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
+from pointcloudmatters_tpu import nn
 
 from pointcloudmatters_tpu.models.components.nn_utils import MaskedBatchNorm
 from pointcloudmatters_tpu.utils.pylogger import RankedLogger
@@ -159,7 +159,7 @@ class ResNetTorchVision(nn.Module):
 # ---------------------------------------------------------------------------
 
 def _port_conv(w: np.ndarray) -> np.ndarray:
-    # torch OIHW -> flax HWIO (shared layout contract)
+    # torch OIHW -> HWIO (shared layout contract)
     from pointcloudmatters_tpu.utils.torch_layouts import conv2d_kernel
 
     return conv2d_kernel(w)
@@ -181,7 +181,7 @@ def _inflate_conv1(w_oihw: np.ndarray, channels: int) -> np.ndarray:
 
 def load_torch_state_dict(params: dict, batch_stats: dict, state_dict: dict,
                           channels: int = 3) -> tuple[dict, dict]:
-    """Map a torchvision/R3M ResNet state dict onto flax param/batch-stats
+    """Map a torchvision/R3M ResNet state dict onto our param/batch-stats
     trees produced by ``ResNetTorchVision.init``. R3M dicts prefix keys with
     ``convnet.`` / ``module.convnet.`` — stripped here."""
     sd = {}
@@ -192,11 +192,11 @@ def load_torch_state_dict(params: dict, batch_stats: dict, state_dict: dict,
     params = jax.tree.map(np.asarray, params)
     batch_stats = jax.tree.map(np.asarray, batch_stats)
 
-    def put_bn(flax_bn_params, flax_bn_stats, torch_prefix):
-        flax_bn_params["scale"] = sd[f"{torch_prefix}.weight"]
-        flax_bn_params["bias"] = sd[f"{torch_prefix}.bias"]
-        flax_bn_stats["mean"] = sd[f"{torch_prefix}.running_mean"]
-        flax_bn_stats["var"] = sd[f"{torch_prefix}.running_var"]
+    def put_bn(bn_params, bn_stats, torch_prefix):
+        bn_params["scale"] = sd[f"{torch_prefix}.weight"]
+        bn_params["bias"] = sd[f"{torch_prefix}.bias"]
+        bn_stats["mean"] = sd[f"{torch_prefix}.running_mean"]
+        bn_stats["var"] = sd[f"{torch_prefix}.running_var"]
 
     conv1 = sd["conv1.weight"]
     if conv1.shape[1] != channels:

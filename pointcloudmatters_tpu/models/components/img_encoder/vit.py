@@ -1,4 +1,4 @@
-"""ViT image encoders, NHWC Flax.
+"""ViT image encoders, NHWC.
 
 Reference `src/models/components/img_encoder/vit.py:96-975` (a vendored timm
 VisionTransformer + MAE variant). Parity surface:
@@ -26,7 +26,7 @@ from typing import Any, Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
+from pointcloudmatters_tpu import nn
 
 from pointcloudmatters_tpu.utils.pylogger import RankedLogger
 

@@ -1,6 +1,6 @@
 """Losses for the policy heads.
 
-TPU-native equivalents of reference `src/models/components/loss/misc.py:6-26`
+Equivalents of reference `src/models/components/loss/misc.py:6-26`
 plus the elementwise action losses the configs wire in as
 ``torch.nn.{MSELoss,L1Loss}(reduction=none)``
 (`configs/model/maniskill2_act_pcd_model.yaml:56-58`).

@@ -1,8 +1,8 @@
-"""Shared NN building blocks for the TPU model stack.
+"""Shared NN building blocks for the model stack.
 
 Key departure from the reference: every module here is padded-native. The
-reference operates on packed variable-length tensors (CUDA-friendly); on TPU
-we carry fixed shapes plus validity masks, so normalization layers must
+reference operates on packed variable-length tensors; under XLA's static
+shapes we carry fixed shapes plus validity masks, so normalization layers must
 exclude padding slots from their statistics. ``MaskedBatchNorm`` is the
 workhorse replacing ``nn.BatchNorm1d`` (reference
 `src/models/components/pcd_encoder/pointnet.py:29`,
@@ -11,7 +11,8 @@ workhorse replacing ``nn.BatchNorm1d`` (reference
 Cross-replica ("sync") batch norm — the reference's
 ``sync_batchnorm: true`` under DDP (`configs/trainer/ddp.yaml:8`) — falls out
 of passing ``axis_name``: the masked sums/counts are ``psum``-ed over the
-device mesh, which is both exact and cheap on ICI.
+device mesh, which is exact. Under the trainer's GSPMD data parallelism the
+statistics are already global (computed over the logically-global batch).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Any, Callable, Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
+from pointcloudmatters_tpu import nn
 
 Dtype = Any
 
@@ -67,7 +68,7 @@ class MaskedBatchNorm(nn.Module):
       the statistics; padded activations still get normalized (they are
       ignored downstream anyway)
     - ``axis_name`` makes the statistics cross-replica exact (psum of sums and
-      counts) — the TPU-native equivalent of Lightning's sync_batchnorm.
+      counts) — the equivalent of Lightning's sync_batchnorm.
     """
 
     momentum: float = 0.1
@@ -145,13 +146,11 @@ class GroupedBNReluMax(nn.Module):
     only needs the per-token ``max``/``min`` of the gathered rows (max when
     the effective scale ``es >= 0``, min when negative) plus the global
     ``sum``/``sumsq`` for the batch statistics — the intermediate BN output
-    over the full neighborhood tensor is never needed. XLA still
-    materializes the raw ``(B, M, K, D)`` gather itself (~1 GB at the
-    flagship shape; profiled in PERF.md — its gather/scatter primitives are
-    the measured floor here, 72.7 ms fwd+bwd at B=32, M=2048, K=16, D=512 on
-    v5e vs ~137 ms for the unfused chain), so the win of this reformulation
-    is eliminating the BN/ReLU passes and h-broadcasts over that tensor,
-    not the gather traffic.
+    over the full neighborhood tensor is never needed. XLA may still
+    materialize the raw ``(B, M, K, D)`` gather itself (~1 GB at the
+    flagship shape), so the win of this reformulation is eliminating the
+    BN/ReLU passes and h-broadcasts over that tensor, not the gather
+    traffic.
 
     Bit-exact vs the unfused path: bf16 rounding is monotone, so
     ``max_k(fl(fl(x_k*es)+eb))`` equals the same map applied to
@@ -170,62 +169,17 @@ class GroupedBNReluMax(nn.Module):
     eps: float = 1e-5
     axis_name: Optional[str] = None
 
-    @staticmethod
-    def resolve_impl(n: int, m: int, k: int, d: int, dtype) -> str:
-        """Pick the builder implementation: the Pallas fused path
-        (``ops/fused_builder.py``) needs a TPU backend, bf16 activations
-        (mixed precision — the packed kernel is bf16-native, so using it
-        under f32-true would silently change precision), and supported
-        shapes. ``PCM_BUILDER_IMPL=xla|fused`` overrides."""
-        import os
-
-        from pointcloudmatters_tpu.ops.fused_builder import (
-            fused_builder_supported,
-        )
-
-        forced = os.environ.get("PCM_BUILDER_IMPL", "auto")
-        if forced == "xla":
-            return "xla"
-        ok = (
-            jax.default_backend() == "tpu"
-            and dtype == jnp.bfloat16
-            and fused_builder_supported(n, m, k, d)
-        )
-        if forced == "fused":
-            if not ok:
-                raise ValueError(
-                    f"PCM_BUILDER_IMPL=fused but shapes/backend unsupported: "
-                    f"N={n} M={m} K={k} D={d} dtype={dtype} "
-                    f"backend={jax.default_backend()}"
-                )
-            return "fused"
-        return "fused" if ok else "xla"
-
     @nn.compact
     def __call__(
         self,
-        g: Optional[jax.Array],
+        g: jax.Array,
         h: jax.Array,
         nn_idx: jax.Array,
         use_running_average: bool = True,
-        *,
-        src: Optional[jax.Array] = None,
-        W: Optional[jax.Array] = None,
-        impl: str = "xla",
     ) -> jax.Array:
         """g: (B, N, D) projected source rows; h: (B, M, D) projected query
         offsets; nn_idx: (B, M, K) int32 into N, -1 = hole. Returns the
-        (B, M, D) pooled tokens.
-
-        ``impl`` selects the builder core:
-          * ``"xla"`` — the original fused-reformulation XLA chain.
-          * ``"fused_core"`` — Pallas forward (``grouped_stats_core``),
-            dense-``dg`` backward; for learned per-point features.
-          * ``"fused_data"`` — Pallas forward + scatter-free dW/dh backward
-            (``grouped_stats_data``); requires ``src`` (the un-projected
-            data rows, stop-gradiented) and ``W`` (the projection kernel),
-            and ``g`` may be None (the op computes src @ W itself).
-        """
+        (B, M, D) pooled tokens."""
         from pointcloudmatters_tpu.ops.pointops import gather_rows_padded
 
         features = h.shape[-1]
@@ -238,31 +192,16 @@ class GroupedBNReluMax(nn.Module):
         scale = self.param("scale", nn.initializers.ones, (features,), jnp.float32)
         bias = self.param("bias", nn.initializers.zeros, (features,), jnp.float32)
 
-        if impl == "fused_core":
-            from pointcloudmatters_tpu.ops.fused_builder import (
-                grouped_stats_core,
-            )
-
-            vmax, vmin, total, total_sq = grouped_stats_core(g, h, nn_idx)
-        elif impl == "fused_data":
-            from pointcloudmatters_tpu.ops.fused_builder import (
-                grouped_stats_data,
-            )
-
-            vmax, vmin, total, total_sq = grouped_stats_data(
-                src, W, h, nn_idx
-            )
-        else:
-            hole = (nn_idx < 0)[..., None]  # (B, M, K, 1)
-            gg = gather_rows_padded(g, nn_idx)  # (B, M, K, D) — not stored
-            x = gg - h[:, :, None, :]
-            neg_inf = jnp.asarray(-jnp.inf, x.dtype)
-            pos_inf = jnp.asarray(jnp.inf, x.dtype)
-            vmax = jnp.max(jnp.where(hole, neg_inf, x), axis=2)  # (B, M, D)
-            vmin = jnp.min(jnp.where(hole, pos_inf, x), axis=2)
-            xz = jnp.where(hole, 0.0, x)
-            total = jnp.sum(xz, axis=(0, 1, 2), dtype=jnp.float32)
-            total_sq = jnp.sum(xz * xz, axis=(0, 1, 2), dtype=jnp.float32)
+        hole = (nn_idx < 0)[..., None]  # (B, M, K, 1)
+        gg = gather_rows_padded(g, nn_idx)  # (B, M, K, D) — not stored
+        x = gg - h[:, :, None, :]
+        neg_inf = jnp.asarray(-jnp.inf, x.dtype)
+        pos_inf = jnp.asarray(jnp.inf, x.dtype)
+        vmax = jnp.max(jnp.where(hole, neg_inf, x), axis=2)  # (B, M, D)
+        vmin = jnp.min(jnp.where(hole, pos_inf, x), axis=2)
+        xz = jnp.where(hole, 0.0, x)
+        total = jnp.sum(xz, axis=(0, 1, 2), dtype=jnp.float32)
+        total_sq = jnp.sum(xz * xz, axis=(0, 1, 2), dtype=jnp.float32)
 
         any_hole = jnp.any(nn_idx < 0, axis=2)[..., None]  # (B, M, 1)
         xmax = jnp.where(any_hole, jnp.maximum(vmax, 0.0), vmax)
@@ -329,13 +268,12 @@ class FrozenBatchNorm(nn.Module):
 
 
 class BitsDropout(nn.Module):
-    """Dropout from uint8 random bits — 4x less RNG work than flax Dropout.
+    """Dropout from uint8 random bits — 4x less RNG work than nn.Dropout.
 
-    ``flax.linen.Dropout`` draws one 32-bit threefry word per element; for
-    the (B, 2051, 512) residual streams of the ACT encoder that RNG compute
-    (not the HBM traffic) dominates the op — measured ~1.6 ms per dropout on
-    v5e, ~4.7 ms per encoder layer. Drawing uint8 bits quarters the threefry
-    work; the drop rate is quantized to the nearest 1/256 (0.1 -> 25.6/256
+    ``nn.Dropout`` draws one 32-bit random word per element for the
+    (B, 2051, 512) residual streams of the ACT encoder. Drawing uint8 bits
+    quarters that RNG work; the drop rate is quantized to the nearest 1/256
+    (0.1 -> 25.6/256
     rounds to 26/256 = 0.1016), the same documented trade as ``EfficientMHA``
     in `act/transformer.py`. Expectation is exactly preserved (inverse scaling
     uses the quantized keep probability); only the train-time noise

@@ -3,8 +3,8 @@
 The reference builds this from five ``spconv.SubMConv3d`` layers with
 ``kernel_size=1`` (`src/models/components/pcd_encoder/pointnet.py:31-62`).
 A 1x1 submanifold sparse conv is exactly a per-point linear map — no
-neighborhood structure — so the TPU-native formulation is a dense masked MLP
-over the padded ``(B, N, C)`` cloud: pure batched matmuls on the MXU, no
+neighborhood structure — so the padded formulation is a dense masked MLP
+over the padded ``(B, N, C)`` cloud: pure batched matmuls, no
 sparse machinery at all. Channel widths (64, 64, 64, 128, 512), bias-free
 linears, BatchNorm(eps=1e-3, momentum=0.01) + ReLU match the reference;
 the batch-norm statistics are computed over valid points only (the packed
@@ -16,7 +16,7 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import jax
-from flax import linen as nn
+from pointcloudmatters_tpu import nn
 
 from pointcloudmatters_tpu.models.components.nn_utils import MaskedBatchNorm
 

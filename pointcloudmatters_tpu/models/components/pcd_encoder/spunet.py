@@ -1,4 +1,4 @@
-"""SpUNet — PonderV2-style sparse 3D UNet, TPU-native.
+"""SpUNet — PonderV2-style sparse 3D UNet, in JAX.
 
 Reference `src/models/components/pcd_encoder/spunet.py:229,411-463` (itself
 from PonderV2/Pointcept). Architecture parity: SPConvPatchEmbedding stem
@@ -8,10 +8,10 @@ SiLU-Linear FiLM modulation from a condition embedding), channels
 (32,64,128,256,256,128,96,96), layers (2,3,4,6,2,2,2,2), optional cls-mode
 mean pooling (replacing `torch_geometric.utils.scatter`).
 
-TPU-native machinery (`pointcloudmatters_tpu.ops.sparse`): voxel hash maps
+Static-shape machinery (`pointcloudmatters_tpu.ops.sparse`): voxel hash maps
 are sorted-key binary searches built once per resolution level and reused by
 every block at that level (spconv's indice_key caching); convs are stacked
-gathers + MXU matmuls; down/up are deterministic segment scatter/gather over
+gathers + matmuls; down/up are deterministic segment scatter/gather over
 first-occurrence representative slots with a constant padded length.
 """
 
@@ -22,7 +22,7 @@ from typing import Any, Optional, Sequence
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
+from pointcloudmatters_tpu import nn
 
 from pointcloudmatters_tpu.models.components.nn_utils import MaskedBatchNorm
 from pointcloudmatters_tpu.ops import sparse as S

@@ -3,7 +3,7 @@
 The reference encoders load their checkpoints inside ``__init__`` (R3M via
 gdown, VC-1/MultiMAE via URL download, PonderV2 via local path —
 `img_encoder/resnet.py:143-199`, `vit.py:814-960`, `multivit.py:2537-2597`,
-`pcd_encoder/spunet.py:399-409`). Flax params exist only after ``init``, so
+`pcd_encoder/spunet.py:399-409`). Params exist only after ``init``, so
 the task module calls :func:`load_pretrained_into` right after policy init:
 it walks the policy's submodule tree, finds encoder modules with a
 ``pretrained_path``, loads the torch state dict from the *local* file
@@ -17,7 +17,7 @@ import os
 from typing import Any
 
 import jax
-from flax import linen as nn
+from pointcloudmatters_tpu import nn
 
 from pointcloudmatters_tpu.utils.pylogger import RankedLogger
 

@@ -1,6 +1,6 @@
 """ManiSkill2 task modules: BC training + simulator-rollout validation.
 
-TPU-native counterparts of `src/models/maniskill2_act_bc_module.py:17` and
+Counterparts of `src/models/maniskill2_act_bc_module.py:17` and
 `src/models/maniskill2_dp_bc_module.py:21`. Training is the jitted BCModule
 path; validation spins up the ManiSkill2 simulator on the host and rolls the
 policy closed-loop (`envs/rollout.py`). When the simulator stack isn't

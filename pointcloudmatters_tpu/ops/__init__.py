@@ -1,27 +1,14 @@
-"""Point-cloud ops and the TPU kernel zoo.
+"""Point-cloud ops: the reference CUDA extension's API as padded JAX ops.
 
-Kernel selection matrix — which implementation is canonical where (all
-numbers measured on v5e at the flagship shapes B=32, N=10240, M=2048, K=16,
-L=2051, d_head=64; see PERF.md for the full step budget):
+How each op runs is chosen in one place, ``pointops.kernel_route()``:
 
-| op | impl (module) | selector | when it wins | measured |
-|----|---------------|----------|--------------|----------|
-| kNN | **v3 whole-row hierarchical** (`pallas_knn3.py`) | `PCM_KNN_IMPL=v3` (default) | N_pad <= 16384 (distance row fits the 8 MiB VMEM guard) | 18.5-23 ms |
-| kNN | chunk-skip + Morton-sorted queries (`pallas_knn2.py`) | `PCM_KNN_IMPL=chunkskip` (and the automatic v3 fallback for rows over the VMEM guard) | N too large for a whole row in VMEM | 44-47 ms |
-| kNN | chunked dense scan (`pallas_knn.py`) | `PCM_KNN_IMPL=baseline` | debugging/reference only | 47 ms |
-| kNN | XLA top-k (`pointops._knn_query_padded_xla`) | automatic off-TPU / nsample > 128 | CPU tests, interpret mode | — |
-| FPS | VMEM-resident scan (`pallas_fps.py`) | automatic on TPU | always on TPU | 7.9 ms (4x over XLA scan) |
-| attention (encoder self, L~2k) | **oneshot whole-row** (`oneshot_attention.py`) | `Transformer.attention_impl="oneshot"` (default) | key row fits VMEM (L <~ 8k), no mask/bias | 26.6-29.5 ms/layer fwd+bwd vs dense 35.7 |
-| attention (encoder self, eval) | fused QKV+attn+out one-kernel fwd (`fused_mha.py`) | `attention_impl="fused"` (opt-in; trains via the oneshot core) | deterministic forwards: rollout validation / inference | 8.8 vs 10.6 ms/layer eval fwd; training parity (36.1) |
-| attention (long L) | flash streaming (`flash_attention.py`, vendored JAX) | `attention_impl="flash"` | L >~ 8k (whole key row no longer fits VMEM) | 43.9 ms/layer at L=2051 (loses to oneshot there) |
-| attention (decoder cross, nq=100) | XLA dense | `TransformerDecoderLayer.attention_impl="dense"` (default) | tiny query side: padding to kernel tiles costs more than it saves | 5.4 ms vs 7.0 oneshot |
-| attention (CVAE posterior, L=102) | XLA dense | automatic (`min_seq_len` in `ops/attention.py`) | short sequences | — |
-| token builder (data sources) | **fused window-gather + scatter-free bwd** (`fused_builder.py`) | automatic for `pre_sample`/frozen-backbone call sites on TPU+bf16; `PCM_BUILDER_IMPL=xla\|fused` overrides | source rows need no gradient -> the dense-dg scatter disappears from the backward | 58.2 vs 71.1 ms chain fwd+bwd (flagship shape) |
-| token builder (learned features) | XLA gather chain (`nn_utils.GroupedBNReluMax` default) | automatic | trainable per-point features: the dg scatter is the floor and autodiff already sits on it (PERF.md round 5) | 71.1 ms (fused core variant measured 116.4) |
+| op | GPU | CPU (tests) |
+|----|-----|-------------|
+| FPS | Pallas kernel, Triton route (`fps_triton.py`): one program per cloud, all rounds in registers | XLA loop (`pointops._farthest_point_sampling_padded_xla`) |
+| kNN | plain XLA (`pointops.knn_query_padded`) | the same |
+| grouping, ball query, interpolation, token builder | plain XLA | the same |
 
-Unknown `PCM_KNN_IMPL` / `attention_impl` values raise instead of silently
-selecting a backend. All Pallas kernels fall back to the XLA formulations
-off-TPU (CPU test suite) and under `PCM_DISABLE_PALLAS=1`.
+Any other platform raises. Times on the card are in PERF.md.
 """
 
 from pointcloudmatters_tpu.ops.pointops import (

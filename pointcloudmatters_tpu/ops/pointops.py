@@ -1,14 +1,14 @@
-"""pointops — TPU-native point-cloud primitives (JAX).
+"""pointops — point-cloud primitives (JAX).
 
 Re-implements the 16-symbol API of the reference CUDA extension
 (`libs/pointops/functions/__init__.py:1-14`) in two layers:
 
 1. **Padded-native core** (`*_padded`): operates on fixed-shape
    ``(B, N, ...)`` tensors with boolean validity masks. This is the layout
-   the whole TPU compute path uses — XLA requires static shapes, and batched
-   dense tensors map onto the MXU/VPU, unlike the reference's packed "offset"
-   layout. All core ops are jittable and differentiable where the reference
-   kernels have backward passes.
+   the whole compute path uses — XLA requires static shapes, and batched
+   dense tensors map onto matmuls and vector ops, unlike the reference's
+   packed "offset" layout. All core ops are jittable and differentiable
+   where the reference kernels have backward passes.
 
 2. **Packed-offset API wrappers**: the reference's exact signatures
    (``xyz (n,3)``, ``offset (b,)`` prefix sums — see
@@ -41,6 +41,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax import lax
+
+from pointcloudmatters_tpu.ops import fps_triton
 
 __all__ = [
     # padded-native core
@@ -80,18 +82,16 @@ _BIG = 1.0e10
 def _sqdist(a: jax.Array, b: jax.Array) -> jax.Array:
     """Pairwise squared euclidean distance (..., M, 3) x (..., N, 3) -> (..., M, N).
 
-    Matmul expansion |a|^2 + |b|^2 - 2ab^T: the naive broadcast-subtract form
-    materializes an (..., M, N, 3) tensor whose size-3 minor dim gets padded
-    to the 128-lane TPU tile — a 43x memory blowup (measured seconds per
-    call); the cross term here is one MXU matmul and the result is (..., M, N)
-    directly. Clamped at zero against cancellation."""
+    Matmul expansion |a|^2 + |b|^2 - 2ab^T: the cross term is one matmul and
+    the result is (..., M, N) directly, with no (..., M, N, 3) intermediate.
+    Clamped at zero against cancellation."""
     a2 = jnp.sum(a * a, axis=-1)[..., :, None]
     b2 = jnp.sum(b * b, axis=-1)[..., None, :]
-    # precision=HIGHEST: the default TPU f32 matmul runs as bf16 passes and
-    # the expansion cancels catastrophically — measured ~5e-4 absolute d2
-    # noise on unit-box clouds, which re-ranks ~90% of kNN neighbors vs f64
-    # truth (scripts/knn truth check, round 3). Contraction depth is 3, so
-    # full-precision passes cost nothing.
+    # precision=HIGHEST: a default-precision f32 matmul may run in TF32 (on
+    # the GPU) or bf16 passes, and the expansion then cancels
+    # catastrophically — ~5e-4 absolute d2 noise on unit-box clouds re-ranks
+    # most kNN neighbours. Contraction depth is 3, so full precision costs
+    # nothing.
     ab = jnp.einsum("...mc,...nc->...mn", a, b,
                     preferred_element_type=jnp.float32,
                     precision=jax.lax.Precision.HIGHEST).astype(a.dtype)
@@ -106,7 +106,7 @@ def _sqdist(a: jax.Array, b: jax.Array) -> jax.Array:
 def _farthest_point_sampling_padded_xla(
     xyz: jax.Array, mask: jax.Array, npoints: int
 ) -> jax.Array:
-    """Iterative FPS over padded batches.
+    """Iterative FPS over padded batches, as plain XLA.
 
     Args:
         xyz: (B, N, 3) float coordinates; valid points must be packed at the
@@ -119,29 +119,28 @@ def _farthest_point_sampling_padded_xla(
         kernel seeds at the segment start (`sampling_cuda_kernel.cu:39`).
         When a row has fewer than ``npoints`` valid points, indices repeat
         (running min-distance hits zero), matching reference behavior.
+        Distances are direct coordinate differences, as in the CUDA kernel.
     """
     B, N, _ = xyz.shape
     valid = mask.astype(bool)
     # padding slots get -1 so they are never argmax-selected while any valid
     # point still has nonnegative running distance
-    init_dist = jnp.where(valid, _BIG, -1.0)
+    init_dist = jnp.where(valid, _BIG, -1.0).astype(xyz.dtype)
     out0 = jnp.zeros((B, npoints), jnp.int32)
     start = jnp.zeros((B,), jnp.int32)
-    x2 = jnp.sum(xyz * xyz, axis=-1)  # (B, N), hoisted out of the loop
 
     def body(i, carry):
         dist, last, out = carry
-        p = jnp.take_along_axis(xyz, last[:, None, None], axis=1)[:, 0]  # (B,3)
-        # |x - p|^2 without materializing a lane-3 intermediate (see _sqdist)
-        d = x2 + jnp.sum(p * p, axis=-1)[:, None] - 2.0 * jnp.einsum(
-            "bnc,bc->bn", xyz, p, precision=jax.lax.Precision.HIGHEST
-        )
-        dist = jnp.where(valid, jnp.minimum(dist, d), -1.0)
+        p = jnp.take_along_axis(xyz, last[:, None, None], axis=1)  # (B,1,3)
+        diff = xyz - p
+        d = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] \
+            + diff[..., 2] * diff[..., 2]
+        dist = jnp.minimum(dist, d)  # padding stays at -1
         nxt = jnp.argmax(dist, axis=-1).astype(jnp.int32)
         out = out.at[:, i].set(nxt)
         return dist, nxt, out
 
-    _, _, out = lax.fori_loop(1, npoints, body, (init_dist, start, out0.at[:, 0].set(0)))
+    _, _, out = lax.fori_loop(1, npoints, body, (init_dist, start, out0))
     return out
 
 
@@ -150,13 +149,8 @@ def _farthest_point_sampling_padded_xla(
 # ---------------------------------------------------------------------------
 
 def _topk_min(d2: jax.Array, k: int) -> tuple[jax.Array, jax.Array]:
-    """k smallest of ``d2`` along the last axis by iterative min-extraction.
-
-    ``lax.top_k`` lowers to a bitonic sorting network on TPU — catastrophic
-    for wide rows. For the small k of point neighborhoods (<= 32), k passes
-    of (min, argmin, mask-out) are pure VPU reductions and run orders of
-    magnitude faster. Ascending output.
-    """
+    """k smallest of ``d2`` along the last axis by iterative min-extraction:
+    k passes of (min, argmin, mask-out). Ascending output."""
     vals, idxs = [], []
     for _ in range(k):
         a = jnp.argmin(d2, axis=-1)
@@ -185,7 +179,7 @@ def _knn_query_padded_xla(
     its local k nearest via iterative min-extraction (no sorting networks —
     see ``_topk_min``), then merged with the running best the same way. Peak
     memory is O(B*M*(k+chunk)) instead of O(B*M*N)
-    (HBM-bandwidth-friendly analog of `knn_query_cuda_kernel.cu:60-104`).
+    (a memory-frugal analog of `knn_query_cuda_kernel.cu:60-104`).
 
     Args:
         new_xyz: (B, M, 3) query points.
@@ -237,31 +231,35 @@ def _knn_query_padded_xla(
 
 
 
-def _use_pallas() -> bool:
-    """Fused Pallas kernels on real TPUs; the XLA formulations everywhere
-    else (CPU tests, interpret mode). PCM_DISABLE_PALLAS=1 opts out."""
-    import os
+def kernel_route() -> str:
+    """The one place that chooses how the point ops run on this platform.
 
-    if os.environ.get("PCM_DISABLE_PALLAS") == "1":
-        return False
-    try:
-        return jax.default_backend() == "tpu"
-    except RuntimeError:  # pragma: no cover
-        return False
+    ``"triton"`` on a GPU: FPS runs its Pallas kernel (`ops/fps_triton.py`).
+    ``"xla"`` on the CPU (tests): every op runs its plain XLA version. Any
+    other platform raises — nothing falls back silently.
+    """
+    platform = jax.default_backend()
+    if platform == "gpu":
+        return "triton"
+    if platform == "cpu":
+        return "xla"
+    raise RuntimeError(
+        f"no point-op route for platform {platform!r}; expected 'gpu' or 'cpu'"
+    )
 
 
 def farthest_point_sampling_padded(
     xyz: jax.Array, mask: jax.Array, npoints: int
 ) -> jax.Array:
     """Iterative FPS over padded batches; see `_farthest_point_sampling_padded_xla`
-    for semantics. Dispatches to the fused VMEM-resident Pallas kernel on TPU
-    (`ops/pallas_fps.py`, ~4x)."""
-    if _use_pallas():
-        from pointcloudmatters_tpu.ops.pallas_fps import (
-            farthest_point_sampling_padded_pallas,
+    for semantics. Geometry runs in float32 whatever the compute dtype. On a
+    GPU, rows of up to ``fps_triton.MAX_POINTS`` points run the one-program-
+    per-cloud Triton kernel (`ops/fps_triton.py`)."""
+    xyz = xyz.astype(jnp.float32)
+    if kernel_route() == "triton" and fps_triton.supported(xyz.shape[1]):
+        return fps_triton.farthest_point_sampling_padded_triton(
+            xyz, mask, npoints
         )
-
-        return farthest_point_sampling_padded_pallas(xyz, mask, npoints)
     return _farthest_point_sampling_padded_xla(xyz, mask, npoints)
 
 
@@ -273,53 +271,11 @@ def knn_query_padded(
     chunk: int = 2048,
 ) -> tuple[jax.Array, jax.Array]:
     """Exact kNN over padded batches; see `_knn_query_padded_xla` for
-    semantics. On TPU dispatches to the whole-row hierarchical-reduction
-    kernel (`ops/pallas_knn3.py`, 18.5 ms vs 44-47 ms for the chunked/
-    chunk-skipping kernels at the flagship shape on v5e) when the distance
-    row fits VMEM; otherwise to the chunked dense-scan kernel
-    (`ops/pallas_knn.py`). ``PCM_KNN_IMPL`` selects explicitly:
-    ``v3`` (default) | ``chunkskip`` (`ops/pallas_knn2.py`, Morton-permuted
-    queries + early-out) | ``baseline`` (chunked dense scan)."""
-    import os
-
-    impl = os.environ.get("PCM_KNN_IMPL", "v3")
-    if impl not in ("v3", "chunkskip", "baseline"):
-        # validate regardless of backend/nsample so a typo never silently
-        # benchmarks the wrong implementation
-        raise ValueError(
-            "PCM_KNN_IMPL must be one of 'v3', 'chunkskip', 'baseline'; "
-            f"got {impl!r}"
-        )
-    if _use_pallas() and nsample <= 128:
-        N_pad = -(-xyz.shape[1] // 128) * 128
-        if impl == "v3" and N_pad * 128 * 4 <= 8 * 2 ** 20:
-            from pointcloudmatters_tpu.ops.pallas_knn3 import (
-                knn_query_padded_pallas3,
-            )
-
-            return knn_query_padded_pallas3(new_xyz, xyz, mask, nsample)
-        if impl in ("v3", "chunkskip"):
-            # v3 rows that exceed the VMEM guard fall back to the
-            # chunk-skipping kernel (44-47 ms class at flagship shapes),
-            # never the slowest dense-scan baseline
-            from pointcloudmatters_tpu.ops.pallas_knn2 import (
-                knn_query_padded_pallas2,
-            )
-
-            qvalid = jnp.ones(new_xyz.shape[:2], bool)
-            perm = jnp.argsort(
-                morton_codes_padded(new_xyz, qvalid), axis=-1
-            ).astype(jnp.int32)
-            inv = jnp.argsort(perm, axis=-1).astype(jnp.int32)
-            q_sorted = jnp.take_along_axis(new_xyz, perm[..., None], axis=1)
-            idx_s, d2_s = knn_query_padded_pallas2(q_sorted, xyz, mask, nsample)
-            idx = jnp.take_along_axis(idx_s, inv[..., None], axis=1)
-            d2 = jnp.take_along_axis(d2_s, inv[..., None], axis=1)
-            return idx, d2
-        from pointcloudmatters_tpu.ops.pallas_knn import knn_query_padded_pallas
-
-        return knn_query_padded_pallas(new_xyz, xyz, mask, nsample)
-    return _knn_query_padded_xla(new_xyz, xyz, mask, nsample, chunk=chunk)
+    semantics. Geometry runs in float32 whatever the compute dtype."""
+    return _knn_query_padded_xla(
+        new_xyz.astype(jnp.float32), xyz.astype(jnp.float32), mask, nsample,
+        chunk=chunk,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -397,51 +353,6 @@ def random_ball_query_padded(
     idx = jnp.where(taken_ok, take, -1)
     dist2 = jnp.where(taken_ok, dist2, _BIG)
     return idx, dist2
-
-
-# ---------------------------------------------------------------------------
-# Spatial (Morton) ordering — locality for the chunk-skipping kNN kernel
-# ---------------------------------------------------------------------------
-
-def _part1by2(v: jax.Array) -> jax.Array:
-    """Spread 10 bits over 30 (standard 32-bit Morton dilation)."""
-    v = v & 0x3FF
-    v = (v | (v << 16)) & 0x030000FF
-    v = (v | (v << 8)) & 0x0300F00F
-    v = (v | (v << 4)) & 0x030C30C3
-    v = (v | (v << 2)) & 0x09249249
-    return v
-
-
-def morton_codes_padded(coord: jax.Array, valid: jax.Array) -> jax.Array:
-    """(B, N, 3), (B, N) -> (B, N) int32 Morton codes (invalid -> INT32_MAX).
-
-    Coordinates are quantized to a 10-bit grid over each cloud's valid
-    bounding box. Purely an ordering key: any spatially-coherent order works
-    for the kNN chunk-skip; exactness of neighbors never depends on it.
-    """
-    c = coord.astype(jnp.float32)
-    v = valid[..., None]
-    big = jnp.float32(_BIG)
-    lo = jnp.min(jnp.where(v, c, big), axis=1, keepdims=True)
-    hi = jnp.max(jnp.where(v, c, -big), axis=1, keepdims=True)
-    scale = 1023.0 / jnp.maximum(hi - lo, 1e-6)
-    q = jnp.clip((c - lo) * scale, 0.0, 1023.0).astype(jnp.int32)
-    code = (
-        _part1by2(q[..., 0])
-        | (_part1by2(q[..., 1]) << 1)
-        | (_part1by2(q[..., 2]) << 2)
-    )
-    return jnp.where(valid, code, jnp.int32(2**31 - 1))
-
-
-def spatial_sort_order(coord: jax.Array, valid: jax.Array) -> jax.Array:
-    """(B, N) int32 permutation: valid points in Morton order, pads at the
-    end. ``coord[order]`` satisfies the packed-front invariant the padded
-    ops expect."""
-    return jnp.argsort(morton_codes_padded(coord, valid), axis=-1).astype(
-        jnp.int32
-    )
 
 
 # ---------------------------------------------------------------------------
@@ -532,15 +443,14 @@ def gather_rows_padded(feat: jax.Array, idx: jax.Array) -> jax.Array:
     """Batched row gather ``feat[b, idx[b, ...], :]`` -> ``(B, *idx.shape[1:], C)``.
 
     Flattens the batch into one big row-gather (``jnp.take`` over a
-    ``(B*N, C)`` table) — on TPU this lowers to a single dynamic-gather of
-    contiguous lane-aligned rows, measurably faster than the batched-gather
-    HLO that ``vmap``/``take_along_axis`` produce. Negative indices are
-    clamped to 0 (callers mask holes themselves).
+    ``(B*N, C)`` table): a single gather of contiguous rows instead of the
+    batched-gather HLO that ``vmap``/``take_along_axis`` produce. Negative
+    indices are clamped to 0 (callers mask holes themselves).
 
     ``mode="clip"`` is essential, not cosmetic: the default FILL_OR_DROP
     gather uses a NaN fill value whose zero-times-NaN masking leaks NaNs into
     the *gradient* when XLA fuses the transpose-scatter with surrounding
-    reductions (reproduced on both CPU and TPU; indices here are always
+    reductions (reproduced on the CPU; indices here are always
     in-bounds, so clip semantics are exact).
     """
     B, N, C = feat.shape

@@ -3,7 +3,7 @@
 The reference builds SpUNet/PointNet on the ``spconv`` CUDA library
 (`src/models/components/pcd_encoder/spunet.py:10`), whose core is a
 rulebook: per kernel-offset index pairs built by hashing voxel coordinates.
-TPU-native reformulation (SURVEY §7.1 decision 2), fully on device with
+Static-shape reformulation (SURVEY §7.1 decision 2), fully on device with
 static shapes:
 
 - voxel coords are linearized to int32 keys and **sorted once per
@@ -11,7 +11,7 @@ static shapes:
   binary search (``searchsorted``) over the sorted keys — O(K·N·log N)
   with no host round-trips and no dynamic shapes
 - a submanifold conv is then ``sum_k gather(feat, idx_k) @ W_k``, evaluated
-  as one stacked ``(N, K*Ci) x (K*Ci, Co)`` matmul on the MXU
+  as one stacked ``(N, K*Ci) x (K*Ci, Co)`` matmul
 - strided down-conv = per-point tap matmul + deterministic scatter-add onto
   first-occurrence "representative" slots of the parent voxel (replacing
   spconv's atomic rulebook scatter); the padded point count is carried

@@ -1,4 +1,4 @@
-"""TPU-native Trainer: a jitted data-parallel training loop.
+"""Trainer: a jitted data-parallel training loop.
 
 Replaces PyTorch Lightning's ``Trainer`` (the reference delegates its entire
 runtime to it — SURVEY §2.3) with the JAX equivalent:
@@ -14,40 +14,51 @@ runtime to it — SURVEY §2.3) with the JAX equivalent:
   + optimizer + batch-stats update in a single XLA program
 - mixed precision (``precision="bf16-mixed"``): f32 master params, params and
   batch cast to bf16 inside the step; normalization statistics remain f32
-- checkpointing via Orbax; Lightning-style callbacks and metric loggers
+- checkpoints as ``.npz`` directories (``utils/checkpoint``); Lightning-style
+  callbacks and metric loggers
 
 Config-schema parity: constructor accepts the reference's trainer YAML keys
-(`configs/trainer/*.yaml`); Lightning-only knobs without a TPU meaning are
+(`configs/trainer/*.yaml`); Lightning-only knobs without a meaning here are
 accepted and ignored.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 import os
 import time
 from typing import Any, Optional
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from pointcloudmatters_tpu.utils.checkpoint import load_tree, save_tree
 from pointcloudmatters_tpu.utils.loggers import as_multi_logger
 from pointcloudmatters_tpu.utils.pylogger import RankedLogger
 
 log = RankedLogger(__name__, rank_zero_only=True)
 
 
-@flax.struct.dataclass
+@functools.partial(
+    jax.tree_util.register_dataclass,
+    data_fields=["step", "params", "batch_stats", "opt_state", "rng"],
+    meta_fields=[],
+)
+@dataclasses.dataclass(frozen=True)
 class TrainState:
     step: jax.Array
     params: Any
     batch_stats: Any
     opt_state: Any
     rng: jax.Array
+
+    def replace(self, **changes) -> "TrainState":
+        return dataclasses.replace(self, **changes)
 
 
 def _cast_floating(tree: Any, dtype) -> Any:
@@ -57,6 +68,11 @@ def _cast_floating(tree: Any, dtype) -> Any:
         return x
 
     return jax.tree.map(cast, tree)
+
+
+# "gpu" requires a visible GPU; "cpu" switches JAX to the host platform;
+# "auto" takes whatever platform JAX initialised.
+_ACCELERATORS = ("gpu", "cpu", "auto")
 
 
 def _limit(n_batches: int, limit) -> int:
@@ -95,11 +111,11 @@ class Trainer:
         fast_dev_run: bool = False,
         overfit_batches: float = 0.0,
         # PRNG backend for all jax.random draws (dropout masks, VAE noise,
-        # diffusion noise). "rbg" uses XLA's hardware-accelerated generator —
-        # on v5e the flagship step spends ~6% of its time generating threefry
-        # dropout bits, which rbg eliminates. rbg streams are deterministic
-        # per seed but, unlike threefry, not guaranteed stable across
-        # backends/XLA releases; set "threefry2x32" for that guarantee.
+        # diffusion noise). "rbg" uses XLA's RngBitGenerator, which is
+        # cheaper than threefry for the large dropout masks. rbg streams are
+        # deterministic per seed but, unlike threefry, not guaranteed stable
+        # across backends/XLA releases or device layouts; set
+        # "threefry2x32" for that guarantee.
         prng_impl: str = "rbg",
         **_ignored,
     ):
@@ -111,6 +127,10 @@ class Trainer:
         self.min_epochs = min_epochs or 1
         self.fast_dev_run = fast_dev_run
         self.max_epochs = 1 if fast_dev_run else max_epochs
+        if accelerator not in _ACCELERATORS:
+            raise ValueError(
+                f"accelerator must be one of {_ACCELERATORS}, got {accelerator!r}"
+            )
         self.accelerator = accelerator
         self.devices_spec = devices
         self.check_val_every_n_epoch = check_val_every_n_epoch
@@ -151,6 +171,7 @@ class Trainer:
             (cb for cb in self.callbacks if hasattr(cb, "best_model_path")), None
         )
         self._schedule = None
+        self.train_step = None  # the jitted step of the last fit()
         self._mesh: Optional[Mesh] = None
         self._module = None
 
@@ -158,11 +179,16 @@ class Trainer:
     # Devices / mesh / sharding
     # ------------------------------------------------------------------
     def _select_devices(self) -> list:
-        if self.accelerator in ("cpu",) and jax.default_backend() != "cpu":
+        if self.accelerator == "cpu" and jax.default_backend() != "cpu":
             try:
                 jax.config.update("jax_platforms", "cpu")
             except RuntimeError:
                 log.warning("cannot switch platform after JAX init; continuing")
+        if self.accelerator == "gpu" and jax.default_backend() != "gpu":
+            raise RuntimeError(
+                f"trainer.accelerator=gpu but JAX found no GPU (platform "
+                f"{jax.default_backend()!r}); use trainer=cpu to run on the host"
+            )
         devs = jax.devices()
         spec = self.devices_spec
         if isinstance(spec, int) and spec > 0:
@@ -198,7 +224,7 @@ class Trainer:
         array is assembled with ``jax.make_array_from_process_local_data``
         so the jitted step sees one logical batch of
         ``process_count * local_batch`` rows sharded over the global mesh —
-        the TPU-native DDP (`configs/trainer/ddp.yaml:4-13`).
+        the equivalent of DDP (`configs/trainer/ddp.yaml:4-13`).
         """
         ndev = self.mesh.devices.size
         nproc = jax.process_count()
@@ -289,12 +315,9 @@ class Trainer:
         return jax.jit(eval_step)
 
     # ------------------------------------------------------------------
-    # Checkpointing (Orbax)
+    # Checkpointing
     # ------------------------------------------------------------------
     def save_checkpoint(self, path: str, weights_only: bool = False) -> None:
-        import orbax.checkpoint as ocp
-
-        path = os.path.abspath(path)
         state = self.state
         item = {
             "params": jax.device_get(state.params),
@@ -308,17 +331,13 @@ class Trainer:
         extra = self._module.state_dict_extras() if self._module else {}
         if extra:
             item["extras"] = extra
-        ckptr = ocp.PyTreeCheckpointer()
-        ckptr.save(path, item, force=True)
+        save_tree(path, item)
 
     def restore_checkpoint(self, path: str) -> dict:
-        import orbax.checkpoint as ocp
-
-        ckptr = ocp.PyTreeCheckpointer()
         path = os.path.abspath(path)
-        raw = ckptr.restore(path)  # plain containers; reveals saved keys
+        raw = load_tree(path)  # plain containers; reveals saved keys
         state = self.state
-        # second restore against a structural template so optax namedtuples
+        # second read against a structural template so optax namedtuples
         # and empty nodes round-trip exactly
         template = {"params": state.params, "batch_stats": state.batch_stats,
                     "step": 0, "epoch": 0}
@@ -326,9 +345,9 @@ class Trainer:
             template["opt_state"] = state.opt_state
         if "rng" in raw:
             template["rng"] = state.rng
+        restored = load_tree(path, template)
         if "extras" in raw:
-            template["extras"] = raw["extras"]
-        restored = ckptr.restore(path, item=template)
+            restored["extras"] = raw["extras"]
         params = jax.tree.map(
             lambda t, r: jnp.asarray(r, t.dtype), state.params, restored["params"]
         )
@@ -395,6 +414,7 @@ class Trainer:
             cb.on_fit_start(self, model)
 
         train_step = self._build_train_step(model)
+        self.train_step = train_step
         from pointcloudmatters_tpu.utils.profiling import make_profiler
 
         profiler = make_profiler(self.profiler, self.default_root_dir)
@@ -454,6 +474,8 @@ class Trainer:
                 model.train_metrics.update(
                     {k: v for k, v in metrics.items()}, weight=1.0
                 )
+                for cb in self.callbacks:
+                    cb.on_train_batch_end(self, model, metrics, i)
                 if self.detect_anomaly:
                     loss_val = float(metrics["loss"])
                     if not math.isfinite(loss_val):

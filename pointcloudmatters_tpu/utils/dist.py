@@ -1,11 +1,11 @@
 """Distributed runtime helpers.
 
-TPU-native counterparts of the reference's torch.distributed utilities
+Counterparts of the reference's torch.distributed utilities
 (`src/utils/dist.py:4-27`, `src/utils/common_utils.py:34-40,193-283`): rank /
 world-size come from ``jax.process_*``; the NCCL all-reduce helpers become
 host-level psum via ``jax.experimental.multihost_utils``; SLURM/TCP process
-group bootstrap becomes ``jax.distributed.initialize`` (ICI needs nothing,
-multi-host DCN needs the coordinator address).
+group bootstrap becomes ``jax.distributed.initialize`` (one host needs
+nothing; several hosts need the coordinator address).
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
-"""IO helpers (reference `src/utils/io.py`): json / h5 / pickle / npy."""
+"""IO helpers (reference `src/utils/io.py`): json / h5 / npz / pickle / npy."""
 
 from __future__ import annotations
 
 import json
+import os
 import pickle
 
 import numpy as np
@@ -24,15 +25,58 @@ def save_json(obj, path: str, **kwargs):
 
 
 def load_h5_data(data) -> dict:
-    """Recursively materialize an h5py group into nested numpy dicts
-    (reference `src/utils/io.py:81-88`)."""
+    """Recursively materialize an h5py group (or a nested dict of arrays)
+    into nested numpy dicts (reference `src/utils/io.py:81-88`)."""
     out = {}
     for k in data.keys():
-        if isinstance(data[k], h5py.Dataset):
-            out[k] = data[k][:]
-        else:
-            out[k] = load_h5_data(data[k])
+        v = data[k]
+        out[k] = load_h5_data(v) if hasattr(v, "keys") else np.asarray(v[()])
     return out
+
+
+class NpzTrajectories:
+    """Read-only view of a trajectory archive saved with ``np.savez``, whose
+    keys are the HDF5 dataset paths (``traj_0/obs/agent/qpos``): indexing by
+    a group name returns that group as nested dicts of arrays. It stands in
+    for an ``h5py.File`` where h5py is not installed."""
+
+    def __init__(self, path: str):
+        self._npz = np.load(path)
+
+    def __getitem__(self, group: str) -> dict:
+        prefix = group.rstrip("/") + "/"
+        out: dict = {}
+        for key in self._npz.files:
+            if not key.startswith(prefix):
+                continue
+            node = out
+            *parents, leaf = key[len(prefix):].split("/")
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = self._npz[key]
+        if not out:
+            raise KeyError(group)
+        return out
+
+    def close(self) -> None:
+        self._npz.close()
+
+
+def open_trajectories(path: str):
+    """A trajectory file: ``.npz`` archives need only numpy; anything else is
+    opened as HDF5 (ManiSkill2's demonstration format), which needs h5py."""
+    if path.endswith(".npz"):
+        return NpzTrajectories(path)
+    if h5py is None:
+        raise ImportError(
+            f"reading {path} needs h5py; convert it to .npz or install h5py"
+        )
+    return h5py.File(path, "r")
+
+
+def trajectory_sidecar(path: str) -> str:
+    """The JSON file that describes a trajectory file's episodes."""
+    return os.path.splitext(path)[0] + ".json"
 
 
 def load_pickle(path: str):

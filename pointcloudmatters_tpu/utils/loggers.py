@@ -60,7 +60,7 @@ class CSVLogger(BaseLogger):
 
 class OfflineBackendLogger(CSVLogger):
     """Stand-in for a networked experiment-tracking backend (wandb, comet,
-    mlflow, neptune, aim) in the zero-egress TPU environment.
+    mlflow, neptune, aim) in a zero-egress environment.
 
     Accepts the real backend's full constructor schema (so reference configs
     port verbatim), records it to ``backend_config.json`` next to the

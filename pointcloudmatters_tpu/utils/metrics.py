@@ -8,7 +8,7 @@ specs may be ``{"type": "MeanMetric"}`` dicts, ``_target_`` dicts whose tail
 names a torchmetrics class, bare strings, or metric instances.
 
 Cross-replica note: step outputs are already psum/pmean-reduced inside the
-jitted step (the TPU analog of ``sync_dist=True``), so host-side
+jitted step (the analog of ``sync_dist=True``), so host-side
 accumulation here is global by construction.
 """
 

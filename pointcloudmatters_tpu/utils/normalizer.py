@@ -3,7 +3,7 @@
 Replaces the reference's torch-module normalizers
 (`src/utils/diffusion_policy/normalizer.py:14,108`) and stat helpers
 (`src/utils/normalize_utils.py:7-42`). Parameters live in a plain nested dict
-of numpy arrays, so a normalizer can be carried inside the Orbax checkpoint
+of numpy arrays, so a normalizer can be carried inside the checkpoint
 pytree and used inside jitted functions.
 """
 

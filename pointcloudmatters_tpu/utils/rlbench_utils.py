@@ -4,7 +4,7 @@ Simulator-side pieces (CoppeliaSim/PyRep/RLBench) import lazily and raise a
 clear error when the stack is absent — training and unit tests never need
 them. Observation conversion mirrors the dataset pipeline (loc-bounds pose
 normalization, SCENE_BOUNDS cloud crop, semantic-mask labeling) but emits
-padded TPU-native batches.
+padded batches.
 
 Text goals: the reference loads CLIP ViT-B/16 at eval time
 (`rlbench_utils.py:119-125`). Here text encoding is a pluggable

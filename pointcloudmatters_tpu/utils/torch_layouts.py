@@ -1,7 +1,7 @@
-"""The torch -> flax weight-LAYOUT contract, in one place.
+"""The torch -> JAX weight-LAYOUT contract, in one place.
 
 Pure array-in/array-out converters shared by everything that maps reference
-PyTorch weights onto this framework's flax parameter trees:
+PyTorch weights onto this framework's parameter trees:
 
 - the pretrained-encoder loaders (`img_encoder/resnet.py`, `vit.py`, ...)
 - `conditional_unet1d.port_torch_state`
@@ -12,17 +12,17 @@ Keeping a single copy means a layout fix (e.g. the ConvTranspose1d spatial
 flip) cannot silently diverge between the tests that prove the mapping and
 the tools users run.
 
-Conventions (torch -> flax):
+Conventions (torch -> ours):
 - ``nn.Linear``            weight (out, in)        -> Dense kernel (in, out)
 - ``nn.Conv1d``            weight (out, in, k)     -> Conv kernel (k, in, out)
 - ``nn.Conv1d`` k=1        weight (out, in, 1)     -> Dense kernel (in, out)
 - ``nn.Conv2d``            weight (out, in, h, w)  -> Conv kernel (h, w, in, out)
 - ``nn.Conv2d`` k=1        weight (out, in, 1, 1)  -> Dense kernel (in, out)
-- ``nn.ConvTranspose1d``   weight (in, out, k)     -> flax Conv-transpose
+- ``nn.ConvTranspose1d``   weight (in, out, k)     -> nn.ConvTranspose
   kernel (k, in, out) with the spatial axis FLIPPED
-  (flax ``transpose_kernel=False`` convention)
+  (``transpose_kernel=False`` convention)
 - spconv ``SubMConv3d`` k=1 weight (out,1,1,1,in)  -> Dense kernel (in, out)
-- ``nn.MultiheadAttention`` in_proj (3D, D) + out_proj (D, D) -> flax
+- ``nn.MultiheadAttention`` in_proj (3D, D) + out_proj (D, D) ->
   ``MultiHeadDotProductAttention`` query/key/value DenseGeneral kernels
   (D, H, dh) and out kernel (H, dh, D)
 """
@@ -65,7 +65,7 @@ def conv2d_k1_kernel(w) -> np.ndarray:
 
 
 def conv_transpose1d_kernel(w) -> np.ndarray:
-    # torch (in, out, k) -> flax (k, in, out); flax's transpose_kernel=False
+    # torch (in, out, k) -> (k, in, out); transpose_kernel=False
     # correlates rather than convolves, hence the spatial flip
     return np.ascontiguousarray(np.asarray(w).transpose(2, 0, 1)[::-1])
 

@@ -2,7 +2,7 @@
 # Download ManiSkill2 demonstration trajectories and replay them into the
 # observation modes used for training (reference
 # scripts/download_and_replay_maniskill2.sh). Requires the mani_skill2
-# package on the host (simulator side; not needed for TPU training itself).
+# package on the host (simulator side; not needed for training itself).
 #
 # Usage: bash scripts/download_and_replay_maniskill2.sh <ENV_ID> [OBS_MODE]
 set -euo pipefail

@@ -1,9 +1,9 @@
-"""Port a reference PyTorch-Lightning checkpoint to an Orbax checkpoint.
+"""Port a reference PyTorch-Lightning checkpoint to this framework's checkpoint.
 
 The migration story for anyone holding reference-trained weights
 (`src/train.py:93` / `test_rlbench_act.py:114` semantics): take the
 Lightning ``.ckpt`` the reference's ``ModelCheckpoint`` wrote, map its
-``state_dict`` onto this framework's flax parameter/batch-stats trees, and
+``state_dict`` onto this framework's parameter/batch-stats trees, and
 save in the exact layout ``Trainer.save_checkpoint`` produces — so
 ``ckpt_path=<ported>`` works in ``src/train.py`` / ``src/validate.py``
 unchanged.
@@ -87,7 +87,7 @@ class SD:
 
 # ---------------------------------------------------------------------------
 # primitive converters — layout math lives in utils/torch_layouts.py (the
-# single torch->flax layout contract, shared with the parity tests)
+# single torch->JAX layout contract, shared with the parity tests)
 # ---------------------------------------------------------------------------
 
 def linear(sd: SD, p: str) -> dict:
@@ -127,7 +127,7 @@ def conv1x1_2d(sd: SD, p: str) -> dict:
 
 
 def conv1d(sd: SD, p: str) -> dict:
-    """torch Conv1d (out,in,k) -> flax (k,in,out)."""
+    """torch Conv1d (out,in,k) -> (k,in,out)."""
     out = {"kernel": TL.conv1d_kernel(sd[f"{p}.weight"])}
     if f"{p}.bias" in sd.keys():
         out["bias"] = sd[f"{p}.bias"]
@@ -143,7 +143,7 @@ def conv1d_as_dense(sd: SD, p: str) -> dict:
 
 
 def conv_transpose1d(sd: SD, p: str) -> dict:
-    """torch ConvTranspose1d (in,out,k) -> flax (k,in,out), k flipped."""
+    """torch ConvTranspose1d (in,out,k) -> (k,in,out), k flipped."""
     out = {"kernel": TL.conv_transpose1d_kernel(sd[f"{p}.weight"])}
     if f"{p}.bias" in sd.keys():
         out["bias"] = sd[f"{p}.bias"]
@@ -355,7 +355,7 @@ def multivit_backbone(sd: SD) -> tuple[dict, dict]:
 def resnet_backbone(sd: SD, channels: int) -> tuple[dict, dict]:
     """torchvision ResNet keys -> our ResNetTorchVision trees, via the
     existing loader (`img_encoder/resnet.py`). Needs a template init to know
-    the tree structure, so this imports jax/flax lazily."""
+    the tree structure, so this imports jax lazily."""
     import jax
     import jax.numpy as jnp
 
@@ -611,7 +611,7 @@ def port_dp_policy(sd: SD) -> tuple[dict, dict, dict]:
 def port_state_dict(
     state_dict: dict, policy: str = "auto", nhead: int = 8
 ) -> dict:
-    """Lightning state dict -> Orbax checkpoint item (Trainer layout)."""
+    """Lightning state dict -> checkpoint item (Trainer layout)."""
     sd = SD({
         (k[len("policy."):] if k.startswith("policy.") else k): v
         for k, v in state_dict.items()
@@ -647,7 +647,7 @@ def port_state_dict(
 def main(argv=None) -> str:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("ckpt", help="Lightning .ckpt path")
-    ap.add_argument("out", help="output Orbax checkpoint directory")
+    ap.add_argument("out", help="output checkpoint directory")
     ap.add_argument("--policy", default="auto", choices=["auto", "act", "dp"])
     ap.add_argument("--nhead", type=int, default=8,
                     help="attention heads (for in_proj splitting)")
@@ -687,10 +687,10 @@ def main(argv=None) -> str:
             print(f"  extras: {sorted(item['extras'])}")
         return None
 
-    import orbax.checkpoint as ocp
+    from pointcloudmatters_tpu.utils.checkpoint import save_tree
 
     out = os.path.abspath(args.out)
-    ocp.PyTreeCheckpointer().save(out, item, force=True)
+    save_tree(out, item)
     print(f"ported {n:,} parameters -> {out}")
     return out
 

@@ -7,7 +7,7 @@ state, CLIP-encodes the task description, and writes
 
 Additions over the reference:
 - the CLIP text embeddings are ALSO written into a shared cache
-  (``clip_cache.npz``) so closed-loop evaluation on the TPU host never needs
+  (``clip_cache.npz``) so closed-loop evaluation on the training host never needs
   the CLIP weights (see ``utils/rlbench_utils.CachedTextEncoder``)
 - ``--text-encoder hash`` runs fully offline (smoke tests)
 

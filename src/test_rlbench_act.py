@@ -26,6 +26,7 @@ import numpy as np
 
 from pointcloudmatters_tpu.envs.rlbench_eval import run_rlbench_act_eval
 from pointcloudmatters_tpu.utils import config as C
+from pointcloudmatters_tpu.utils.compile_cache import enable_compile_cache
 from pointcloudmatters_tpu.utils import rlbench_utils as RU
 from pointcloudmatters_tpu.utils.pylogger import RankedLogger
 from pointcloudmatters_tpu.utils.utils import extras, seed_everything, task_wrapper
@@ -34,7 +35,7 @@ log = RankedLogger(__name__, rank_zero_only=True)
 
 
 def build_model_and_state(cfg, trainer_cls=None):
-    """Instantiate the task module and restore the Orbax checkpoint."""
+    """Instantiate the task module and restore the checkpoint."""
     from pointcloudmatters_tpu.trainer import Trainer
 
     datamodule = C.instantiate(cfg.data)
@@ -135,6 +136,7 @@ def eval(cfg) -> tuple[dict, dict]:
 
 
 def main(argv: Optional[list[str]] = None):
+    enable_compile_cache()
     argv = list(sys.argv[1:] if argv is None else argv)
     cfg = C.compose(os.path.join(REPO_ROOT, "configs"), "test_rlbench_act", argv)
     C.set_runtime(cwd=os.getcwd(), output_dir="<pending>")

@@ -24,6 +24,7 @@ import numpy as np
 
 from pointcloudmatters_tpu.envs.rlbench_eval import run_rlbench_dp_eval
 from pointcloudmatters_tpu.utils import config as C
+from pointcloudmatters_tpu.utils.compile_cache import enable_compile_cache
 from pointcloudmatters_tpu.utils import rlbench_utils as RU
 from pointcloudmatters_tpu.utils.pylogger import RankedLogger
 from pointcloudmatters_tpu.utils.utils import extras, seed_everything, task_wrapper
@@ -104,6 +105,7 @@ def eval(cfg) -> tuple[dict, dict]:
 
 
 def main(argv: Optional[list[str]] = None):
+    enable_compile_cache()
     argv = list(sys.argv[1:] if argv is None else argv)
     cfg = C.compose(os.path.join(REPO_ROOT, "configs"), "test_rlbench_dp", argv)
     C.set_runtime(cwd=os.getcwd(), output_dir="<pending>")

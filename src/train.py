@@ -5,7 +5,7 @@ Same CLI contract as the reference (`src/train.py:116`):
     python src/train.py exp_maniskill2_act_policy=base \
         exp_maniskill2_act_policy/maniskill2_model@maniskill2_model=scratch_pointnet_pcd \
         exp_maniskill2_act_policy/maniskill2_pcd_task@maniskill2_pcd_task=PickCube-v0 \
-        trainer=tpu debug=default data.train.dataset_file=...
+        debug=default data.train.dataset_file=...
 
 Overrides use the Hydra grammar implemented by
 ``pointcloudmatters_tpu.utils.config``; composition root is
@@ -23,6 +23,7 @@ if REPO_ROOT not in sys.path:
     sys.path.insert(0, REPO_ROOT)
 
 from pointcloudmatters_tpu.utils import config as C
+from pointcloudmatters_tpu.utils.compile_cache import enable_compile_cache
 from pointcloudmatters_tpu.utils.pylogger import RankedLogger
 from pointcloudmatters_tpu.utils.utils import (
     extras,
@@ -108,6 +109,7 @@ def _run_one(argv: list[str], output_dir: Optional[str] = None) -> Optional[floa
 
 
 def main(argv: Optional[list[str]] = None) -> Optional[float]:
+    enable_compile_cache()
     argv = list(sys.argv[1:] if argv is None else argv)
     multirun = False
     for flag in ("-m", "--multirun"):

@@ -17,6 +17,7 @@ if REPO_ROOT not in sys.path:
     sys.path.insert(0, REPO_ROOT)
 
 from pointcloudmatters_tpu.utils import config as C
+from pointcloudmatters_tpu.utils.compile_cache import enable_compile_cache
 from pointcloudmatters_tpu.utils.pylogger import RankedLogger
 from pointcloudmatters_tpu.utils.utils import (
     extras,
@@ -54,6 +55,7 @@ def validate(cfg) -> tuple[dict, dict]:
 
 
 def main(argv: Optional[list[str]] = None):
+    enable_compile_cache()
     argv = list(sys.argv[1:] if argv is None else argv)
     cfg = C.compose(os.path.join(REPO_ROOT, "configs"), "train", argv)
     C.set_runtime(cwd=os.getcwd(), output_dir="<pending>")

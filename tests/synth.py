@@ -1,6 +1,6 @@
 """Synthetic ManiSkill2-format trajectory generator for tests and smoke runs.
 
-Writes an HDF5 + JSON pair matching the replayed-demo layout the datasets
+Writes an HDF5 (or ``.npz``) + JSON pair matching the replayed-demo layout the datasets
 read (reference `maniskill2_single_task_pcd_act.py:36-87`):
 traj_{i}/actions, traj_{i}/obs/{agent/qpos, pointcloud/{xyzw,rgb},
 image/base_camera/{rgb,depth}, extra/goal_pos...}.
@@ -9,8 +9,8 @@ image/base_camera/{rgb,depth}, extra/goal_pos...}.
 from __future__ import annotations
 
 import json
+import os
 
-import h5py
 import numpy as np
 
 
@@ -26,47 +26,47 @@ def make_synthetic_maniskill2(
     env_id: str = "PickCube-v0",
     seed: int = 0,
 ) -> str:
+    """Writes ``path`` as HDF5, or as an ``.npz`` archive keyed by the same
+    dataset paths when ``path`` ends in ``.npz`` (no h5py needed)."""
     rng = np.random.RandomState(seed)
     pts_per_cam = cam_side * cam_side
-    with h5py.File(path, "w") as f:
-        for i in range(n_episodes):
-            g = f.create_group(f"traj_{i}")
-            T = episode_len
-            g.create_dataset("actions", data=rng.randn(T, action_dim).astype(np.float32))
-            obs = g.create_group("obs")
-            obs.create_dataset(
-                "agent/qpos", data=rng.randn(T + 1, qpos_dim).astype(np.float32))
-            obs.create_dataset(
-                "agent/qvel", data=rng.randn(T + 1, qpos_dim).astype(np.float32))
-            # tabletop-ish cloud: xy in [-0.2,0.2], z in [0, 0.3]; ~20% w=0 junk
-            xyz = rng.rand(T + 1, n_cams * pts_per_cam, 3).astype(np.float32)
-            xyz[..., :2] = (xyz[..., :2] - 0.5) * 0.4
-            xyz[..., 2] *= 0.3
-            w = (rng.rand(T + 1, n_cams * pts_per_cam, 1) > 0.2).astype(np.float32)
-            obs.create_dataset("pointcloud/xyzw", data=np.concatenate([xyz, w], -1))
-            obs.create_dataset(
-                "pointcloud/rgb",
-                data=rng.randint(0, 255, (T + 1, n_cams * pts_per_cam, 3)).astype(np.uint8),
-            )
-            obs.create_dataset(
-                "image/base_camera/rgb",
-                data=rng.randint(0, 255, (T + 1, img_side, img_side, 3)).astype(np.uint8),
-            )
-            obs.create_dataset(
-                "image/base_camera/depth",
-                data=(rng.rand(T + 1, img_side, img_side, 1) * 1024).astype(np.float32),
-            )
-            obs.create_dataset(
-                "extra/goal_pos", data=rng.randn(T + 1, 3).astype(np.float32))
-            obs.create_dataset(
-                "extra/obj_start_pos", data=rng.randn(T + 1, 3).astype(np.float32))
-            obs.create_dataset(
-                "extra/target_angle_diff", data=rng.randn(T + 1).astype(np.float32))
+    datasets = {}
+    for i in range(n_episodes):
+        g = f"traj_{i}"
+        T = episode_len
+        datasets[f"{g}/actions"] = rng.randn(T, action_dim).astype(np.float32)
+        obs = f"{g}/obs"
+        datasets[f"{obs}/agent/qpos"] = rng.randn(T + 1, qpos_dim).astype(np.float32)
+        datasets[f"{obs}/agent/qvel"] = rng.randn(T + 1, qpos_dim).astype(np.float32)
+        # tabletop-ish cloud: xy in [-0.2,0.2], z in [0, 0.3]; ~20% w=0 junk
+        xyz = rng.rand(T + 1, n_cams * pts_per_cam, 3).astype(np.float32)
+        xyz[..., :2] = (xyz[..., :2] - 0.5) * 0.4
+        xyz[..., 2] *= 0.3
+        w = (rng.rand(T + 1, n_cams * pts_per_cam, 1) > 0.2).astype(np.float32)
+        datasets[f"{obs}/pointcloud/xyzw"] = np.concatenate([xyz, w], -1)
+        datasets[f"{obs}/pointcloud/rgb"] = rng.randint(
+            0, 255, (T + 1, n_cams * pts_per_cam, 3)).astype(np.uint8)
+        datasets[f"{obs}/image/base_camera/rgb"] = rng.randint(
+            0, 255, (T + 1, img_side, img_side, 3)).astype(np.uint8)
+        datasets[f"{obs}/image/base_camera/depth"] = (
+            rng.rand(T + 1, img_side, img_side, 1) * 1024).astype(np.float32)
+        datasets[f"{obs}/extra/goal_pos"] = rng.randn(T + 1, 3).astype(np.float32)
+        datasets[f"{obs}/extra/obj_start_pos"] = rng.randn(T + 1, 3).astype(np.float32)
+        datasets[f"{obs}/extra/target_angle_diff"] = rng.randn(T + 1).astype(np.float32)
+    if str(path).endswith(".npz"):
+        with open(path, "wb") as f:
+            np.savez(f, **datasets)
+    else:
+        import h5py
+
+        with h5py.File(path, "w") as f:
+            for key, value in datasets.items():
+                f.create_dataset(key, data=value)
     meta = {
         "episodes": [{"episode_id": i, "reset_kwargs": {"seed": i}} for i in range(n_episodes)],
         "env_info": {"env_id": env_id, "env_kwargs": {"obs_mode": "pointcloud"}},
     }
-    json_path = str(path).replace(".h5", ".json")
+    json_path = os.path.splitext(str(path))[0] + ".json"
     with open(json_path, "w") as f:
         json.dump(meta, f)
     return str(path)

@@ -436,67 +436,3 @@ class TestRotations:
         via_q = rc.quaternion_apply(q, pts)
         via_m = jnp.einsum("nij,nj->ni", rc.quaternion_to_matrix(q), pts)
         np.testing.assert_allclose(np.asarray(via_q), np.asarray(via_m), atol=1e-4)
-
-
-class TestFusedSelfAttention:
-    """attention_impl='fused' (transformer.py FusedSelfAttention +
-    ops/fused_mha.py): checkpoint-compatible with every other backend;
-    off-TPU it must equal the flax dense math exactly."""
-
-    def _build(self, impl, dropout=0.0):
-        from pointcloudmatters_tpu.models.components.act.transformer import (
-            TransformerEncoderLayer,
-        )
-
-        return TransformerEncoderLayer(
-            64, 4, 32, dropout, "relu", False, attention_impl=impl
-        )
-
-    def test_param_tree_matches_other_backends(self):
-        import jax
-        import jax.numpy as jnp
-
-        rng = jax.random.PRNGKey(0)
-        src = jnp.zeros((2, 600, 64))
-        pos = jnp.zeros((1, 600, 64))
-        trees = {}
-        for impl in ("dense", "oneshot", "fused"):
-            v = self._build(impl).init(
-                {"params": rng, "dropout": rng}, src, pos, deterministic=True
-            )
-            trees[impl] = jax.tree.map(lambda x: x.shape, v["params"])
-        assert trees["fused"] == trees["dense"] == trees["oneshot"]
-
-    def test_cpu_fallback_matches_dense_backend(self):
-        import jax
-        import jax.numpy as jnp
-        import numpy as np
-
-        rng = jax.random.PRNGKey(0)
-        x = jax.random.normal(rng, (2, 600, 64))
-        pos = jax.random.normal(jax.random.PRNGKey(1), (1, 600, 64))
-        dense = self._build("dense")
-        fused = self._build("fused")
-        v = dense.init({"params": rng, "dropout": rng}, x, pos,
-                       deterministic=True)
-        o1 = dense.apply(v, x, pos, deterministic=True)
-        o2 = fused.apply(v, x, pos, deterministic=True)
-        np.testing.assert_allclose(
-            np.asarray(o1), np.asarray(o2), atol=1e-5
-        )
-
-    def test_decoder_rejects_fused(self):
-        import jax
-        import jax.numpy as jnp
-        import pytest
-
-        from pointcloudmatters_tpu.models.components.act.transformer import (
-            TransformerDecoderLayer,
-        )
-
-        rng = jax.random.PRNGKey(0)
-        layer = TransformerDecoderLayer(64, 4, 32, 0.0, "relu", False,
-                                        attention_impl="fused")
-        with pytest.raises(ValueError, match="encoder-self-attention only"):
-            layer.init({"params": rng}, jnp.zeros((1, 4, 64)),
-                       jnp.zeros((1, 8, 64)), deterministic=True)

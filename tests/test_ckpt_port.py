@@ -1,7 +1,7 @@
 """Round-trip tests for scripts/port_reference_ckpt.py.
 
 Save a fake Lightning checkpoint built from reference(-shaped) torch
-modules, run the porter CLI, load the Orbax output, and assert our policy's
+modules, run the porter CLI, load the ported output, and assert our policy's
 forward matches the torch forward — the product-grade version of the
 mapping machinery proven in tests/test_reference_parity.py.
 """
@@ -55,9 +55,9 @@ def _save_lightning_ckpt(path, module_sd: dict):
 
 
 def _restore(path):
-    import orbax.checkpoint as ocp
+    from pointcloudmatters_tpu.utils.checkpoint import load_tree
 
-    return ocp.PyTreeCheckpointer().restore(os.path.abspath(path))
+    return load_tree(os.path.abspath(path))
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +163,7 @@ def test_actpcd_pointnet_roundtrip(tmp_path):
 
     ckpt = tmp_path / "ref.ckpt"
     _save_lightning_ckpt(ckpt, ref.state_dict())
-    out = tmp_path / "orbax"
+    out = tmp_path / "ported"
     porter = _porter()
     porter.main([str(ckpt), str(out), "--nhead", str(NHEAD)])
     item = _restore(out)
@@ -257,7 +257,7 @@ def test_act_state_only_roundtrip(tmp_path):
 
     ckpt = tmp_path / "ref.ckpt"
     _save_lightning_ckpt(ckpt, ref.state_dict())
-    out = tmp_path / "orbax"
+    out = tmp_path / "ported"
     _porter().main([str(ckpt), str(out), "--nhead", str(NHEAD)])
     item = _restore(out)
 
@@ -346,7 +346,7 @@ def test_dp_unet_and_normalizer_roundtrip(tmp_path):
 
     ckpt = tmp_path / "ref.ckpt"
     _save_lightning_ckpt(ckpt, sd)
-    out = tmp_path / "orbax"
+    out = tmp_path / "ported"
     _porter().main([str(ckpt), str(out)])
     item = _restore(out)
 
@@ -461,7 +461,7 @@ def test_act_resnet_backbone_roundtrip(tmp_path):
 
     ckpt = tmp_path / "ref.ckpt"
     _save_lightning_ckpt(ckpt, sd)
-    out = tmp_path / "orbax"
+    out = tmp_path / "ported"
     _porter().main([str(ckpt), str(out), "--nhead", str(NHEAD)])
     item = _restore(out)
 

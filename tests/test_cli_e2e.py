@@ -26,8 +26,8 @@ _JAX_CACHE = os.path.join(
 
 
 def _cli_env():
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PCM_DISABLE_PALLAS="1")
-    env.pop("PCM_TEST_TPU", None)
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env.pop("PCM_TEST_GPU", None)
     env.setdefault("JAX_COMPILATION_CACHE_DIR", _JAX_CACHE)
     env.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0.5")
     env.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
@@ -53,6 +53,8 @@ def _base_overrides(tmp_path, data_file):
         "model.policy.transformer.nhead=4",
         "logger=csv",
         f"paths.log_dir={tmp_path}/logs",
+        # the shipped configs ask for a GPU; these runs are on the host
+        "trainer.accelerator=cpu",
     ]
 
 

@@ -2,7 +2,7 @@
 
 VERDICT r1 item 3: the reference trains multi-node via Lightning DDP
 (`configs/trainer/ddp.yaml:4-13`, SLURM init `common_utils.py:193-240`). Our
-TPU-native equivalent shards the loader's index stream by
+equivalent shards the loader's index stream by
 ``jax.process_index()`` and assembles global arrays with
 ``jax.make_array_from_process_local_data`` (`trainer.py shard_batch`).
 

@@ -375,7 +375,7 @@ class _TorchPointBackbone(torch.nn.Module):
 
 
 def _flax_point_backbone():
-    from flax import linen as nn
+    from pointcloudmatters_tpu import nn
 
     class FlaxPointBackbone(nn.Module):
         @nn.compact

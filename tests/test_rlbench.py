@@ -231,7 +231,7 @@ class TestRLBenchTrainingVertical:
 class TestCustomEnvRegistry:
     def test_import_without_simulator_is_noop(self):
         """The custom env module must import cleanly when mani_skill2 is
-        absent (the TPU host never has the simulator)."""
+        absent (the training host need not have the simulator)."""
         import pointcloudmatters_tpu.envs.custom_maniskill2 as c
 
         assert c.register_custom_envs() in (True, False)
